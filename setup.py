@@ -7,8 +7,11 @@ setup(
     version="0.1.0",
     description=("TPU-native framework for Transformer-based 3D "
                  "organs-at-risk detection in CT volumes (JAX/XLA/Pallas)"),
-    packages=find_packages(include=["transoar_tpu", "transoar_tpu.*"]),
-    package_data={"transoar_tpu.native": ["*.cpp"]},
+    packages=find_packages(include=["transoar_tpu", "transoar_tpu.*",
+                                    "transoar_tpu_torch",
+                                    "transoar_tpu_torch.*"]),
+    package_data={"transoar_tpu.native": ["*.cpp"],
+                  "transoar_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "scipy",

@@ -1,0 +1,72 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at
+first use into ``build/transoar_tpu_torch/<name>-<hash>.so`` at the root of
+the checkout, keyed by a hash of the source and the compiler flags, so an
+edited source rebuilds and an unchanged one loads in milliseconds. Nothing
+is compiled when a module is imported.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+             / "transoar_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else the
+    one on ``PATH``."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+@functools.cache
+def load_library(name: str):
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside the library as ``.log``.
+    """
+    import ctypes
+
+    so = library_path(name)
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the current build of ``name`` ('' if none)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

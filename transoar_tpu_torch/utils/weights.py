@@ -1,0 +1,162 @@
+"""Weight bridge: the JAX package's flax parameters -> the port's state_dict.
+
+``state_dict_from_jax(params, config)`` takes the flax parameter tree of a
+``transoar_tpu`` TransoarNet (Focused Decoder + CNN AttnFPN), as nested
+dicts of numpy arrays, and returns the port's ``state_dict``. The port names
+its parameters as the reference torch model does, so this is the inverse of
+``transoar_tpu.utils.torch_import.map_reference_state_dict``: transposes
+of conv and dense kernels, and the ``[C, H, hd]`` attention kernels flattened
+back to ``[C, C]``. No jax is needed; the per-module converters are used by
+the parity tests too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def conv_weight(kernel):
+    """flax [k, k, k, C, F] -> torch Conv3d [F, C, k, k, k]."""
+    return np.transpose(kernel, (4, 3, 0, 1, 2))
+
+
+def conv_transpose_weight(kernel):
+    """flax [s, s, s, Cin, Cout] -> torch ConvTranspose3d
+    [Cin, Cout, s, s, s]."""
+    return np.transpose(kernel, (3, 4, 0, 1, 2))
+
+
+def linear_weight(kernel):
+    """flax Dense [in, out] or DenseGeneral [in, H, hd] -> torch [out, in]."""
+    kernel = np.asarray(kernel)
+    return kernel.reshape(kernel.shape[0], -1).T
+
+
+def _prefixed(prefix, tree):
+    return {f"{prefix}.{k}": v for k, v in tree.items()}
+
+
+def norm(p):
+    return {"weight": p["scale"], "bias": p["bias"]}
+
+
+def dense(p):
+    out = {"weight": linear_weight(p["kernel"])}
+    if "bias" in p:
+        out["bias"] = np.asarray(p["bias"]).reshape(-1)
+    return out
+
+
+def conv(p):
+    out = {"weight": conv_weight(p["kernel"])}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def conv_in_relu(p, first=0):
+    """flax ConvInReLU -> children ``first`` (conv), ``first + 1`` (norm)."""
+    return {f"{first}.weight": conv_weight(p["FastConv3D_0"]["kernel"]),
+            **_prefixed(str(first + 1), norm(p["InstanceNorm_0"]))}
+
+
+def encoder_block(p):
+    return _prefixed("_block", {**conv_in_relu(p["ConvInReLU_0"], 0),
+                                **conv_in_relu(p["ConvInReLU_1"], 3)})
+
+
+def mlp(p):
+    n = len([k for k in p if k.startswith("Dense_")])
+    out = {}
+    for i in range(n):
+        out.update(_prefixed(f"layers.{i}", dense(p[f"Dense_{i}"])))
+    return out
+
+
+def ffn(p, names=("linear1", "linear2", "norm")):
+    return {**_prefixed(names[0], dense(p["Dense_0"])),
+            **_prefixed(names[1], dense(p["Dense_1"])),
+            **_prefixed(names[2], norm(p["LayerNorm_0"]))}
+
+
+def self_attention(p):
+    qkv = [dense(p[n]) for n in ("q_proj", "k_proj", "v_proj")]
+    return {"in_proj_weight": np.concatenate([d["weight"] for d in qkv]),
+            "in_proj_bias": np.concatenate([d["bias"] for d in qkv]),
+            **_prefixed("out_proj", dense(p["out_proj"]))}
+
+
+def focused_attention(p):
+    return {"k_proj.weight": linear_weight(p["k_proj"]["kernel"]),
+            "v_proj.weight": linear_weight(p["v_proj"]["kernel"]),
+            **_prefixed("proj", dense(p["proj"]))}
+
+
+def decoder_layer(p):
+    return {**_prefixed("self_attn", self_attention(p["self_attn"])),
+            **_prefixed("norm2", norm(p["norm_sa"])),
+            **_prefixed("cross_attn", focused_attention(p["cross_attn"])),
+            **_prefixed("norm1", norm(p["norm_ca"])),
+            **ffn(p["ffn"], ("linear1", "linear2", "norm3"))}
+
+
+def _stage_numbers(tree, prefix):
+    return sorted(int(k[len(prefix):]) for k in tree if k.startswith(prefix))
+
+
+def state_dict_from_jax(params, config) -> dict:
+    """flax params (``{"params": ...}`` or the inner tree) -> port
+    ``state_dict`` of f32 CPU tensors."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd = {}
+    enc = params["backbone"]["encoder"]
+    for i in range(config["backbone"]["num_stages"]):
+        sd.update(_prefixed(f"_backbone._encoder._stages.{i}",
+                            encoder_block(enc[f"stage{i}"])))
+    dec = params["backbone"]["decoder"]
+    for j, s in enumerate(_stage_numbers(dec, "lateral")):
+        sd.update(_prefixed(f"_backbone._decoder._lateral.{j}",
+                            conv(dec[f"lateral{s}"])))
+    for k, s in enumerate(reversed(_stage_numbers(dec, "up"))):
+        sd[f"_backbone._decoder._up.{k}.weight"] = conv_transpose_weight(
+            dec[f"up{s}"]["kernel"])
+        sd[f"_backbone._decoder._up.{k}.bias"] = dec[f"up{s}"]["bias"]
+    for m, s in enumerate(_stage_numbers(dec, "out")):
+        sd.update(_prefixed(f"_backbone._decoder._out.{m}",
+                            conv(dec[f"out{s}"])))
+    for i in range(config["neck"]["dec_layers"]):
+        sd.update(_prefixed(f"_neck.decoder.layers.{i}",
+                            decoder_layer(params["neck"][f"layer{i}"])))
+    sd.update(_prefixed("_cls_head", dense(params["cls_head"])))
+    sd.update(_prefixed("_reg_head", mlp(params["reg_head"])))
+    sd["_query_embed.weight"] = params["query_embed"]
+    return to_torch(sd)
+
+
+def to_torch(tree: dict) -> dict:
+    """numpy values -> contiguous f32 CPU tensors."""
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32)
+            for k, v in tree.items()}
+
+
+def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
+    """Every parameter drawn from ``numpy.random.default_rng(seed)``: kernels
+    N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2) and the
+    query embedding N(0, 1). Nothing is left at zero, unlike a fresh model
+    whose zero-initialised heads give every query the same score."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        if name == "_query_embed.weight":
+            v = rng.normal(size=shape)
+        elif len(shape) >= 2:
+            v = rng.normal(size=shape) / np.sqrt(np.prod(shape[1:]))
+        elif name.endswith("bias"):
+            v = 0.1 * rng.normal(size=shape)
+        else:
+            v = 1.0 + 0.1 * rng.normal(size=shape)
+        sd[name] = v
+    return to_torch(sd)
