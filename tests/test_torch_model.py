@@ -57,7 +57,7 @@ def slice_run():
     params["cls_head"] = randomize(params["cls_head"], 1)
     params["reg_head"]["Dense_2"] = randomize(params["reg_head"]["Dense_2"],
                                               2)
-    port = build_model(cfg)
+    port = build_model(cfg).eval()  # no dropout, as deterministic apply
     port.load_state_dict(state_dict_from_jax(params, cfg))
 
     with pytest.MonkeyPatch.context() as mp:

@@ -41,11 +41,13 @@ def apply(module, params, *args):
 
 
 def load(port_module, state_dict):
-    """Load a numpy or torch state_dict strictly (every key, nothing more)."""
+    """Load a numpy or torch state_dict strictly (every key, nothing more)
+    and put the module in ``eval()`` mode: no dropout, as the JAX side's
+    deterministic apply."""
     port_module.load_state_dict(
         {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
          state_dict.items()}, strict=True)
-    return port_module
+    return port_module.eval()
 
 
 def t(a):

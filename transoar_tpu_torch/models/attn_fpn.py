@@ -8,6 +8,10 @@ reference ``state_dict``: ``_encoder._stages.{i}._block.*``,
 The stride-1 stage takes the depth-packed chain whenever ``stage0_pack`` is
 set and the depth divides by it. The JAX package also gates it on batch
 size; that gate is a TPU speed choice, not semantics, and the port drops it.
+
+With ``remat`` (default true, as the JAX encoder's ``nn.remat``) each
+encoder block runs under ``torch.utils.checkpoint`` when grad is enabled:
+its activations are recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from transoar_tpu_torch.models.layers import EncoderCnnBlock
 from transoar_tpu_torch.ops.conv3d import Conv3d, ConvTranspose3d
@@ -54,6 +59,7 @@ class Encoder(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.first_out = first_out
+        self.remat = bool(config.get("remat", True))
         start = config["start_channels"]
         k = config.get("kernel_size", 3)
         stages = []
@@ -70,7 +76,10 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         outputs = {}
         for s, stage in enumerate(self._stages):
-            x = stage(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(stage, x, use_reentrant=False)
+            else:
+                x = stage(x)
             if s >= self.first_out:
                 outputs[f"C{s}"] = x
         return outputs

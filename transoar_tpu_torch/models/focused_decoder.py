@@ -18,6 +18,11 @@ originals.
   ``linear2``, ``norm3``).
 - ``FocusedDecoder`` returns the stacked outputs of every layer
   ``[L, B, Q, C]`` for the auxiliary heads.
+- Dropout, in ``train()`` mode only, with masks from the generator passed
+  to ``forward``: ``neck.dropout`` on the self-attention probabilities,
+  after self- and cross-attention and twice in the FFN; the FocusedAttn
+  output at a fixed 0.1 whatever ``neck.dropout`` says, as the JAX layer
+  builds it.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from transoar_tpu_torch.models.layers import (LayerNorm, Linear,
-                                              MultiHeadSelfAttention,
+                                              MultiHeadSelfAttention, dropout,
                                               feed_forward)
 
 MASKED_BIAS = -1e9  # additive bias for voxels outside the organ's attn area
@@ -90,6 +95,8 @@ class FocusedAttn(nn.Module):
     """Multi-head cross-attention with a static per-organ additive bias
     (reference FocusedAttn, focused_decoder.py:192-262)."""
 
+    PROJ_DROP = 0.1  # fixed, whatever neck.dropout says, as the JAX layer
+
     def __init__(self, d_model: int, num_heads: int, num_organs: int,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -103,7 +110,8 @@ class FocusedAttn(nn.Module):
         self.proj = Linear(d_model, d_model, dtype=dtype, init="xavier")
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                bias: torch.Tensor, roi=None) -> torch.Tensor:
+                bias: torch.Tensor, roi=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """q [B, Q, C]; k, v [B, S, C]; bias [organs, S] f32;
         roi: optional (idx [organs, T] long, valid [organs, T] bool)."""
         B, Q, C = q.shape
@@ -133,7 +141,8 @@ class FocusedAttn(nn.Module):
                 + bias[None, None, :, None, :]
             attn = logits.softmax(-1).to(self.dtype).view(B, H, Q, -1)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, vh)
-        return self.proj(out.reshape(B, Q, C))
+        return dropout(self.proj(out.reshape(B, Q, C)),
+                       self.PROJ_DROP if self.training else 0.0, generator)
 
 
 class FocusedDecoderLayer(nn.Module):
@@ -141,9 +150,12 @@ class FocusedDecoderLayer(nn.Module):
     (reference FocusedDecoderLayer.forward, focused_decoder.py:171-189)."""
 
     def __init__(self, d_model: int, num_heads: int, num_organs: int,
-                 dim_feedforward: int, dtype: torch.dtype = torch.bfloat16):
+                 dim_feedforward: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.self_attn = MultiHeadSelfAttention(d_model, num_heads, dtype)
+        self.dropout = dropout
+        self.self_attn = MultiHeadSelfAttention(d_model, num_heads, dropout,
+                                                dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.cross_attn = FocusedAttn(d_model, num_heads, num_organs, dtype)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
@@ -153,12 +165,17 @@ class FocusedDecoderLayer(nn.Module):
                               init="xavier")
         self.norm3 = LayerNorm(d_model, dtype=dtype)
 
-    def forward(self, tgt, query_pos, src, src_pos, bias, roi=None):
+    def forward(self, tgt, query_pos, src, src_pos, bias, roi=None,
+                generator=None):
+        p = self.dropout if self.training else 0.0
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
-        ca = self.cross_attn(tgt + query_pos, src + src_pos, src, bias, roi)
-        tgt = self.norm1(tgt + ca)
-        return feed_forward(tgt, self.linear1, self.linear2, self.norm3)
+        sa = self.self_attn(q, q, tgt, generator)
+        tgt = self.norm2(tgt + dropout(sa, p, generator))
+        ca = self.cross_attn(tgt + query_pos, src + src_pos, src, bias, roi,
+                             generator)
+        tgt = self.norm1(tgt + dropout(ca, p, generator))
+        return feed_forward(tgt, self.linear1, self.linear2, self.norm3, p,
+                            generator)
 
 
 class FocusedDecoder(nn.Module):
@@ -181,7 +198,8 @@ class FocusedDecoder(nn.Module):
         self.dtype = dtype
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
             FocusedDecoderLayer(C, config["nheads"], config["num_organs"],
-                                config["dim_feedforward"], dtype)
+                                config["dim_feedforward"],
+                                float(config.get("dropout", 0.0)), dtype)
             for _ in range(config["dec_layers"]))})
         self.register_buffer("attn_bias", torch.as_tensor(attn_bias),
                              persistent=False)
@@ -194,7 +212,8 @@ class FocusedDecoder(nn.Module):
                 np.asarray(valid, bool)), persistent=False)
 
     def forward(self, src: torch.Tensor, query_embed: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+                pos: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """src/pos [B, S0, S1, S2, C]; query_embed [Q, 2C]
         -> hs [L, B, Q, C]."""
         B, C = src.shape[0], src.shape[-1]
@@ -207,6 +226,7 @@ class FocusedDecoder(nn.Module):
 
         intermediate = []
         for layer in self.decoder["layers"]:
-            tgt = layer(tgt, query_pos, src, pos, self.attn_bias, roi)
+            tgt = layer(tgt, query_pos, src, pos, self.attn_bias, roi,
+                        generator)
             intermediate.append(tgt)
         return torch.stack(intermediate)

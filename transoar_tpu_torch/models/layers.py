@@ -6,6 +6,10 @@ serving path, f32 in the parity tests), so the two packages round at the
 same places. Parameter names follow the reference torch ``state_dict``
 (``_block.0.weight``, ``in_proj_weight``, ``linear1``...), which the weight
 bridge (``utils/weights.py``) and ``transoar_tpu.utils.torch_import`` rely on.
+
+Dropout (``dropout``) draws its masks from the ``torch.Generator`` passed
+to ``forward`` and applies only in ``train()`` mode, as flax's
+``nn.Dropout`` with ``deterministic=False``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from transoar_tpu_torch.ops.conv3d import Conv3d, pack_depth, unpack_depth
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Zero each element with probability ``p`` and scale the rest by
+    1 / (1 - p) in x's dtype (flax ``nn.Dropout``); identity at p = 0."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def _xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -200,36 +214,43 @@ class MLP(nn.Module):
 
 
 def feed_forward(x: torch.Tensor, linear1: Linear, linear2: Linear,
-                 norm: LayerNorm) -> torch.Tensor:
-    """Transformer FFN with residual and post-LayerNorm (dropout is
-    inference-time identity)."""
-    return norm(x + linear2(F.relu(linear1(x))))
+                 norm: LayerNorm, p: float = 0.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """Transformer FFN with residual and post-LayerNorm; dropout ``p`` after
+    the activation and after the second projection."""
+    h = dropout(F.relu(linear1(x)), p, generator)
+    return norm(x + dropout(linear2(h), p, generator))
 
 
 class FFN(nn.Module):
     """Feed-forward block (reference focused_decoder.py:165-169)."""
 
     def __init__(self, d_model: int, dim_feedforward: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype,
                               init="xavier")
         self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype,
                               init="xavier")
         self.norm = LayerNorm(d_model, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return feed_forward(x, self.linear1, self.linear2, self.norm)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return feed_forward(x, self.linear1, self.linear2, self.norm,
+                            self.dropout if self.training else 0.0, generator)
 
 
 class MultiHeadSelfAttention(nn.Module):
     """``nn.MultiheadAttention`` parameters (packed ``in_proj_weight``
-    [3C, C], ``in_proj_bias``, ``out_proj``); softmax in f32."""
+    [3C, C], ``in_proj_bias``, ``out_proj``); softmax in f32, dropout on
+    the probabilities."""
 
-    def __init__(self, d_model: int, num_heads: int,
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
@@ -242,8 +263,8 @@ class MultiHeadSelfAttention(nn.Module):
                              generator)
         nn.init.zeros_(self.in_proj_bias)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         C = q.shape[-1]
         H, hd = self.num_heads, C // self.num_heads
         w = self.in_proj_weight.to(self.dtype)
@@ -257,5 +278,7 @@ class MultiHeadSelfAttention(nn.Module):
         qh, kh, vh = proj(q, 0), proj(k, 1), proj(v, 2)
         attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(hd)
         attn = attn.float().softmax(-1).to(self.dtype)
+        attn = dropout(attn, self.dropout if self.training else 0.0,
+                       generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).flatten(-2)
         return self.out_proj(out)

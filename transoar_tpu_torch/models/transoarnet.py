@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from transoar_tpu.models.anchors import generate_anchors
+from transoar_tpu_torch.models.anchors import generate_anchors
 from transoar_tpu_torch.models.attn_fpn import AttnFPN
 from transoar_tpu_torch.models.focused_decoder import (FocusedDecoder,
                                                        generate_attn_bias,
@@ -66,13 +66,17 @@ class TransoarNet(nn.Module):
                 else:
                     module.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """x [B, S0, S1, S2, C_in] -> pred_logits [B, Q, 1],
         pred_boxes [B, Q, 6] and, with aux_loss, aux_logits [L-1, B, Q, 1],
-        aux_boxes [L-1, B, Q, 6]; all f32."""
+        aux_boxes [L-1, B, Q, 6]; all f32. In ``train()`` mode the neck's
+        dropout masks come from ``generator``."""
         src = self._backbone(x)[self.input_level]
         pos = self._pos_enc(src)
-        hs = self._neck(src, self._query_embed.weight, pos)  # [L, B, Q, C]
+        hs = self._neck(src, self._query_embed.weight, pos,
+                        generator)  # [L, B, Q, C]
         logits = self._cls_head(hs).float()
         raw = self._reg_head(hs).float()
         boxes = (torch.tanh(raw) * self.restrictions

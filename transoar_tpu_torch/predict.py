@@ -26,13 +26,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from transoar_tpu.data.nifti import load_nifti, reorient_ras, write_nifti
-from transoar_tpu.utils.io import set_root_logger, write_json
+from transoar_tpu_torch.data.nifti import load_nifti, reorient_ras, write_nifti
 from transoar_tpu_torch.data.preprocessor import resize_volume
 from transoar_tpu_torch.data.transforms import eval_transform
 from transoar_tpu_torch.models.transoarnet import build_model
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training.inference import inference
+from transoar_tpu_torch.utils.io import set_root_logger, write_json
 
 logger = logging.getLogger(__name__)
 
