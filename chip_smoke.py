@@ -6,29 +6,47 @@ Needs one CUDA card and the repository around it; imports no jax. Phases,
 each printing a line; any failure exits non-zero before the result lines:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from csrc/;
+2. build: compile the CUDA kernels from csrc/, one nvcc per source, all
+   started together;
 3. forward kernel vs plain: packed_conv against packed_conv_reference at
-   the flagship's stage-0 shapes (serving batch 1, training batch 2) and a
-   ragged shape, bf16, with the median time of each over 20 runs, of
-   cuDNN's bf16 conv for scale, and the card's bound for the same work;
+   the stage-0 shapes of the four paths (foc_dec_amos and
+   swin_fpn_visceral, serving batch 1 and training batch 2) and a ragged
+   shape, bf16, with the median time of each over 20 runs, of cuDNN's
+   bf16 conv for scale, and the card's bound for the same work;
 4. backward kernels vs plain: packed_conv_dx (bf16, rtol 1.6e-2 atol
    1e-2) and packed_conv_dw (f32 result, rel-L2 <= 1e-4 against the f32
    plain version of the same bf16 inputs, and bit-identical when run
-   twice) at the training shapes and a ragged shape, timed as phase 3
-   (cuDNN's conv2d_input / conv2d_weight for scale);
-5. small model, CPU vs card: a tiny f32 flagship-shaped model with the same
-   seeded weights on the CPU (plain versions) and on the card (kernels),
-   TF32 off; logits within 1e-3, boxes within 1e-4;
-6. small train step, CPU vs card: the same tiny model at batch 2, f32, in
-   eval() mode (no dropout); loss rtol 1e-4, per-tensor gradient rel-L2 <
-   1e-3, the AdamW step's deltas within rtol 0.05 / atol 0.25 x lr; the
-   card's step launches forward 4 / dx 1 / dw 2 (remat recomputes stage 0);
-7. serving: the full-width foc_dec_amos model (256x256x128, bf16, seeded
+   twice) at both models' training shapes and a ragged shape, timed as
+   phase 3 (cuDNN's conv2d_input / conv2d_weight for scale);
+5. window attention kernels vs plain: fused_window_attention and its
+   backward at each of swin_fpn_visceral's four Swin stages at batch 2
+   (N = 125, d = 16; q, k, v as views of the qkv projection), shifted and
+   unshifted, and a ragged shape (N = 100, d = 8, odd B_): bf16 o, dq, dk,
+   dv within rtol 1.6e-2 atol 1e-2, dbias rel-L2 <= 1e-4 against the f32
+   plain version and bit-identical when run twice; the f32 variants
+   within 1e-5, dbias included; timed as phase 3, with SDPA
+   (``scaled_dot_product_attention`` with the bias + mask as
+   ``attn_mask``) for scale: its forward beside the forward, its backward
+   alone (on a retained graph) beside the backward, and forward +
+   backward of both;
+6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain and
+   cuDNN on one shape;
+7. small models, CPU vs card: tiny f32 flagship-shaped and Swin-shaped
+   models with the same seeded weights on the CPU (plain versions) and on
+   the card (kernels), TF32 off; logits within 1e-3, boxes within 1e-4;
+   the Swin model launches the window forward twice per Swin stage;
+8. small train steps, CPU vs card: the same tiny models at batch 2, f32,
+   in eval() mode (no dropout or DropPath); loss rtol 1e-4, per-tensor
+   gradient rel-L2 < 1e-3, the AdamW step's deltas within rtol 0.05 /
+   atol 0.25 x lr; the card's step launches forward 4 / dx 1 / dw 2 of the
+   band conv (remat recomputes stage 0) and, in the Swin model, the window
+   forward and backward twice per Swin stage each;
+9. serving: the full-width foc_dec_amos model (256x256x128, bf16, seeded
    random weights) saved as a run directory, then
    ``transoar_tpu_torch.predict.main`` on three synthetic NIfTI volumes off
    the training grid; 15 valid detections each, and packed_conv launched
    twice per volume;
-8. training: ``transoar_tpu_torch.train.train`` on full-width foc_dec_amos
+10. training: ``transoar_tpu_torch.train.train`` on full-width foc_dec_amos
    at batch 2 (bf16, augmentation off) over a synthetic 256x256x128
    dataset of 8 train and 2 val cases written to a temporary directory: 2
    epochs = 8 steps + 3 validations; finite losses, changed parameters,
@@ -36,10 +54,20 @@ each printing a line; any failure exits non-zero before the result lines:
    forward / dx / dw kernels; the step-time median (device time, without
    the first step), and per epoch the train loop's volumes/s over its wall
    time (loader and copies included) and the share of that wall time the
-   compute stream spends outside the steps; peak device memory.
+   compute stream spends outside the steps; peak device memory;
+11. Swin serving: full-width swin_fpn_visceral (160x160x256, bf16, seeded
+   random weights) through ``predict.main`` on two volumes off the grid;
+   20 valid detections each, 8 window-forward and 2 packed_conv launches
+   per volume;
+12. Swin training: ``train.train`` on full-width swin_fpn_visceral at batch
+   2 over a synthetic 160x160x256 dataset of 6 train and 2 val cases (20
+   organs): 1 epoch = 3 steps + 2 validations; as phase 10, with 8 / 8
+   window forward / backward and 4 / 1 / 2 band-conv launches per step and
+   peak memory under 40 GiB.
 
-Then one JSON line of per-kernel results and, last, the device line
-``{"ok": true, "device": {"platform": "gpu", ...}}``.
+Every path is driven with all kernel counts set to 0 just before it and
+read just after. Then one JSON line of per-kernel results and, last, the
+device line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
 from __future__ import annotations
@@ -51,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -58,17 +87,33 @@ import numpy as np
 import torch
 
 SEED = 0
-# the flagship's two packed stage-0 band convs at 256x256x128:
-# [B*D/4, H, W, 6*C_in] -> 4*24 channels; serving batch 1, training batch 2
-SERVING_SHAPES = [((64, 256, 128, 6), 96), ((64, 256, 128, 144), 96)]
-TRAIN_SHAPES = [((128, 256, 128, 6), 96), ((128, 256, 128, 144), 96)]
+# the two packed stage-0 band convs of each path, [B*D/4, H, W, 6*C_in] ->
+# 4*24 channels: foc_dec_amos at 256x256x128 and swin_fpn_visceral at
+# 160x160x256; serving batch 1, training batch 2
+CONV_SHAPES = {
+    "serving": [((64, 256, 128, 6), 96), ((64, 256, 128, 144), 96)],
+    "training": [((128, 256, 128, 6), 96), ((128, 256, 128, 144), 96)],
+    "swin_serving": [((40, 160, 256, 6), 96), ((40, 160, 256, 144), 96)],
+    "swin_training": [((80, 160, 256, 6), 96), ((80, 160, 256, 144), 96)],
+}
+TRAIN_PATHS = ("training", "swin_training")
 RAGGED_SHAPE = ((3, 13, 70, 10), 40)
 # request volumes off the 256x256x128 grid, so the resize runs
 VOLUME_SHAPES = [(300, 280, 150), (240, 236, 110), (280, 300, 140)]
 N_REQUESTS = len(VOLUME_SHAPES)
 TRAIN_CASES, VAL_CASES, EPOCHS, BATCH = 8, 2, 2, 2
-# launches per train step at batch 2 with encoder remat (forward, dx, dw)
-STEP_LAUNCHES = (4, 1, 2)
+# band conv launches per train step at batch 2 with encoder remat
+STEP_LAUNCHES = {"packed_conv": 4, "packed_conv_dx": 1, "packed_conv_dw": 2}
+# swin_fpn_visceral (160x160x256): per Swin stage, the windows of one volume
+# after padding to 5x5x5 and the heads; N = 125, d = 16 everywhere
+SWIN_STAGES = [((80, 80, 130), 3), ((40, 40, 65), 6), ((20, 20, 35), 12),
+               ((10, 10, 20), 24)]
+SWIN_N, SWIN_D = 125, 16
+RAGGED_WINDOWS = (7, 3, 100, 8, 7)  # B_, H, N, d, nW
+SWIN_VOLUMES = [(170, 150, 240), (150, 172, 270)]
+SWIN_TRAIN_CASES, SWIN_VAL_CASES = 6, 2
+# window forward launches per Swin forward: 4 stages x 2 blocks
+SWIN_WINDOW_LAUNCHES = 8
 # the card's published dense peaks (H100 SXM data sheet, 700 W)
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 
@@ -84,17 +129,27 @@ def _kernels():
     return pc
 
 
-def _launches():
+def _wrappers():
+    from transoar_tpu_torch.ops.kernels import conv2d, window_attention
+
     pc = _kernels()
-    return (pc.packed_conv.launches, pc.packed_conv_dx.launches,
-            pc.packed_conv_dw.launches)
+    return {"packed_conv": pc.packed_conv,
+            "packed_conv_dx": pc.packed_conv_dx,
+            "packed_conv_dw": pc.packed_conv_dw,
+            "fused_window_attention": window_attention.fused_window_attention,
+            "fused_window_attention_bwd":
+                window_attention.fused_window_attention_bwd,
+            "conv2d_3x3": conv2d.conv2d_3x3}
+
+
+def _counts():
+    """Every kernel's launch count, by wrapper name."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_launches():
-    pc = _kernels()
-    pc.packed_conv.launches = 0
-    pc.packed_conv_dx.launches = 0
-    pc.packed_conv_dw.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def phase_device():
@@ -112,13 +167,16 @@ def phase_device():
 def phase_build():
     from transoar_tpu_torch.ops.kernels._build import build_log, load_library
 
+    names = ("packed_conv", "window_attention")
     t0 = time.perf_counter()
-    load_library("packed_conv")
+    with ThreadPoolExecutor(len(names)) as pool:  # nvcc runs in parallel
+        list(pool.map(load_library, names))
     secs = time.perf_counter() - t0
-    ptxas = [l.strip() for l in build_log("packed_conv").splitlines()
-             if "registers" in l]
-    print(f"build: packed_conv.cu in {secs:.2f} s; " + " | ".join(ptxas),
-          flush=True)
+    for name in names:
+        ptxas = [line.strip() for line in build_log(name).splitlines()
+                 if "registers" in line or "spill" in line]
+        print(f"build: {name}.cu " + " | ".join(ptxas), flush=True)
+    print(f"build: {len(names)} sources in {secs:.2f} s", flush=True)
 
 
 def _median_ms(fn, runs=20, warmup=3):
@@ -162,7 +220,9 @@ def phase_kernel():
     pc = _kernels()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for shape, cout in SERVING_SHAPES + TRAIN_SHAPES + [RAGGED_SHAPE]:
+    cases = [(path, s) for path, shapes in CONV_SHAPES.items()
+             for s in shapes] + [(None, RAGGED_SHAPE)]
+    for path, (shape, cout) in cases:
         cin = shape[-1]
         xh, wp = _inputs(gen, shape, cout)
         ours = pc.packed_conv(xh, wp)
@@ -172,7 +232,7 @@ def phase_kernel():
         row = {"shape": list(shape), "cout": cout,
                "max_abs_err": (ours.float() - ref.float()).abs().max().item()}
         del ours, ref
-        if (shape, cout) != RAGGED_SHAPE:
+        if path is not None:
             flops, pixels = _conv_work(shape, cin, cout)
             row["bound_ms"], row["bound_by"] = _bound(
                 flops, 2 * pixels * (cin + cout) + 2 * wp.numel())
@@ -184,8 +244,7 @@ def phase_kernel():
                 lambda: pc.packed_conv_reference(xh, wp))
             row["library_ms"] = _median_ms(
                 lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1))
-            row["path"] = ("training" if (shape, cout) in TRAIN_SHAPES
-                           else "serving")
+            row["path"] = path
         rows.append(row)
         print(f"kernel: packed_conv {json.dumps(row)}", flush=True)
         del xh, wp
@@ -201,9 +260,11 @@ def phase_backward():
     pc = _kernels()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dx_rows, dw_rows = [], []
-    for shape, cout in TRAIN_SHAPES + [RAGGED_SHAPE]:
+    cases = [(path, s) for path in TRAIN_PATHS
+             for s in CONV_SHAPES[path]] + [(None, RAGGED_SHAPE)]
+    for path, (shape, cout) in cases:
         cin = shape[-1]
-        timed = (shape, cout) != RAGGED_SHAPE
+        timed = path is not None
         xh, wp = _inputs(gen, shape, cout)
         dy = torch.randn((*shape[:3], cout), generator=gen,
                          device="cuda").bfloat16()
@@ -232,6 +293,7 @@ def phase_backward():
                 row["library_ms"] = _median_ms(
                     lambda: torch.nn.grad.conv2d_input(
                         in_shape, w_oihw, dy_nchw, padding=1))
+                row["path"] = path
             dx_rows.append(row)
             print(f"backward: packed_conv_dx {json.dumps(row)}", flush=True)
 
@@ -259,6 +321,7 @@ def phase_backward():
             row["library_ms"] = _median_ms(
                 lambda: torch.nn.grad.conv2d_weight(
                     x_nchw, (cout, cin, 3, 3), dy_nchw, padding=1))
+            row["path"] = path
         dw_rows.append(row)
         print(f"backward: packed_conv_dw {json.dumps(row)}", flush=True)
         del xh, wp, dy
@@ -266,27 +329,225 @@ def phase_backward():
     return dx_rows, dw_rows
 
 
-def phase_small_model():
+def _window_inputs(gen, B, H, N, d, region, dtype=torch.bfloat16):
+    """q, k, v as views of one [B_, N, 3, H, d] projection (q scaled by
+    d^-0.5), a N(0, 1) bias, and an output gradient in [B_, N, H, d] memory,
+    as the Swin module hands them to the kernels."""
+    qkv = torch.randn((B, N, 3, H, d), generator=gen, device="cuda")
+    qkv[:, :, 0] *= d ** -0.5
+    qkv = qkv.to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn((H, N, N), generator=gen, device="cuda")
+    do = torch.randn((B, N, H, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, bias, region, do.transpose(1, 2)
+
+
+def _window_work(B, H, N, d, nW, backward, itemsize=2):
+    """(flops, bytes) of the forward (2 products) or the backward (5), each
+    input read once and each output written once."""
+    heads = B * H * N * d * itemsize
+    consts = 4 * H * N * N + 4 * nW * N
+    if backward:
+        return 10 * B * H * N * N * d, 7 * heads + consts + 4 * H * N * N
+    return 4 * B * H * N * N * d, 4 * heads + consts
+
+
+def _sdpa_args(q, k, v, bias, region):
+    """SDPA's operands for the same function: the bias plus the -100 mask
+    as one bf16 ``attn_mask`` [B_ or 1, H, N, N], built once."""
+    nW = region.shape[0]
+    mask = torch.where(region[:, None, :, None] != region[:, None, None, :],
+                       -100.0, 0.0) + bias[None]
+    if nW > 1:
+        mask = mask.repeat(q.shape[0] // nW, 1, 1, 1)
+    return q, k, v, mask.to(q.dtype)
+
+
+def _check_window_case(wa, q, k, v, bias, region, do, tol, dbias_tol,
+                       label):
+    """Forward and backward against the plain versions, o, dq, dk and dv
+    within ``tol`` = (rtol, atol), dbias within rel-L2 ``dbias_tol`` and the
+    same bits on a rerun; returns the two max abs errors and dbias's
+    rel-L2."""
+    rtol, atol = tol
+    o = wa.fused_window_attention(q, k, v, bias, region)
+    ref = wa.window_attention_reference(q, k, v, bias, region)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, ref, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{label} forward: {m}")
+    fwd_err = (o.float() - ref.float()).abs().max().item()
+    del o, ref
+    grads = wa.fused_window_attention_bwd(q, k, v, bias, region, do)
+    again = wa.fused_window_attention_bwd(q, k, v, bias, region, do)
+    ref = wa.window_attention_bwd_reference(q, k, v, bias, region, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), grads[:3], ref[:3]):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=lambda m, n=name: f"{label} {n}: {m}")
+    rel = _rel_l2(grads[3], ref[3])
+    if rel > dbias_tol:
+        fail(f"window attention {label} dbias: rel-L2 {rel:.2e}")
+    if not torch.equal(grads[3], again[3]):
+        fail(f"window attention {label}: dbias is not deterministic")
+    bwd_err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(grads, ref))
+    return fwd_err, bwd_err, rel
+
+
+def phase_window_kernels():
+    from transoar_tpu_torch.models.swin import _regions
+    from transoar_tpu_torch.ops.kernels import window_attention as wa
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    fwd_rows, bwd_rows = [], []
+    N, d = SWIN_N, SWIN_D
+    for stage, (padded, H) in enumerate(SWIN_STAGES, start=2):
+        for shifted in (False, True):
+            region = _regions(padded, (5, 5, 5),
+                              (2, 2, 2) if shifted else (0, 0, 0),
+                              torch.device("cuda"))
+            nW = int(np.prod(padded)) // N
+            B = BATCH * nW
+            q, k, v, bias, region, do = _window_inputs(gen, B, H, N, d,
+                                                       region)
+            label = f"stage {stage} {'shifted' if shifted else 'unshifted'}"
+            fwd_err, bwd_err, rel = _check_window_case(
+                wa, q, k, v, bias, region, do, (1.6e-2, 1e-2), 1e-4, label)
+            base = {"stage": stage, "shifted": shifted,
+                    "shape": [B, H, N, d], "region_rows": region.shape[0]}
+            sq, sk, sv, mask = _sdpa_args(q, k, v, bias, region)
+            leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
+            # SDPA's backward alone, on one retained forward graph
+            sdpa_out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, scale=1.0)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, scale=1.0)
+                torch.autograd.grad(out, leaves, do)
+
+            def kernels_fwd_bwd():
+                wa.fused_window_attention(q, k, v, bias, region)
+                wa.fused_window_attention_bwd(q, k, v, bias, region, do)
+
+            row = dict(base, max_abs_err=fwd_err)
+            row["bound_ms"], row["bound_by"] = _bound(
+                *_window_work(B, H, N, d, region.shape[0], False))
+            row["ms"] = _median_ms(
+                lambda: wa.fused_window_attention(q, k, v, bias, region))
+            row["plain_ms"] = _median_ms(
+                lambda: wa.window_attention_reference(q, k, v, bias, region))
+            row["library_ms"] = _median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask, scale=1.0))
+            fwd_rows.append(row)
+            print(f"window kernel: fused_window_attention {json.dumps(row)}",
+                  flush=True)
+            row = dict(base, max_abs_err=bwd_err, dbias_rel_l2=rel,
+                       dbias_bit_identical_rerun=True)
+            row["bound_ms"], row["bound_by"] = _bound(
+                *_window_work(B, H, N, d, region.shape[0], True))
+            row["ms"] = _median_ms(lambda: wa.fused_window_attention_bwd(
+                q, k, v, bias, region, do))
+            row["plain_ms"] = _median_ms(
+                lambda: wa.window_attention_bwd_reference(
+                    q, k, v, bias, region, do))
+            row["library_ms"] = _median_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, do, retain_graph=True))
+            row["fwd_bwd_ms"] = _median_ms(kernels_fwd_bwd)
+            row["library_fwd_bwd_ms"] = _median_ms(sdpa_fwd_bwd)
+            bwd_rows.append(row)
+            print(f"window kernel: fused_window_attention_bwd "
+                  f"{json.dumps(row)}", flush=True)
+            del q, k, v, do, sq, sk, sv, mask, leaves, sdpa_out
+            torch.cuda.empty_cache()
+
+    B, H, N, d, nW = RAGGED_WINDOWS
+    region = torch.randint(0, 4, (nW, N), generator=gen,
+                           device="cuda").float()
+    errs = _check_window_case(wa, *_window_inputs(gen, B, H, N, d, region),
+                              (1.6e-2, 1e-2), 1e-4, "ragged")
+    fwd_rows.append({"shape": [B, H, N, d], "max_abs_err": errs[0]})
+    bwd_rows.append({"shape": [B, H, N, d], "max_abs_err": errs[1],
+                     "dbias_rel_l2": errs[2]})
+    # the f32 variants (CUDA cores) at stage 4's shifted windows, batch 2
+    padded, H = SWIN_STAGES[2]
+    region = _regions(padded, (5, 5, 5), (2, 2, 2), torch.device("cuda"))
+    f32 = _check_window_case(
+        wa, *_window_inputs(gen, BATCH * region.shape[0], H, SWIN_N, SWIN_D,
+                            region, torch.float32), (1e-5, 1e-5), 1e-5,
+        "f32")
+    print(f"window kernel: ragged {list(RAGGED_WINDOWS[:4])} bf16 max abs "
+          f"err forward {errs[0]:.3g} backward {errs[1]:.3g}; f32 variants "
+          f"at stage 4 max abs err forward {f32[0]:.3g} backward "
+          f"{f32[1]:.3g}, dbias rel-L2 {f32[2]:.2e}", flush=True)
+    return fwd_rows, bwd_rows
+
+
+def phase_conv2d():
+    from transoar_tpu_torch.ops.kernels.conv2d import (conv2d_3x3,
+                                                       conv2d_3x3_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n, h, w, c, f = 8, 128, 128, 64, 64
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda").bfloat16()
+    wt = torch.randn((3, 3, c, f), generator=gen, device="cuda")
+    wt /= (9 * c) ** 0.5
+    ours = conv2d_3x3(x, wt)
+    ref = conv2d_3x3_reference(x, wt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ours, ref, rtol=1.6e-2, atol=1e-2)
+    row = {"shape": [n, h, w, c], "cout": f,
+           "max_abs_err": (ours.float() - ref.float()).abs().max().item()}
+    row["bound_ms"], row["bound_by"] = _bound(
+        2 * n * h * w * 9 * c * f, 2 * n * h * w * (c + f) + 4 * wt.numel())
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = wt.bfloat16().permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    row["ms"] = _median_ms(lambda: conv2d_3x3(x, wt))
+    row["plain_ms"] = _median_ms(lambda: conv2d_3x3_reference(x, wt))
+    row["library_ms"] = _median_ms(
+        lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1))
+    print(f"conv2d_3x3: {json.dumps(row)}", flush=True)
+    return [row]
+
+
+def _tiny(kind):
+    from transoar_tpu_torch.presets import tiny_flagship_config, \
+        tiny_swin_config
+
+    cfg = tiny_swin_config() if kind == "swin" else tiny_flagship_config()
+    assert cfg["backbone"]["stage0_pack"] == 4
+    swin = cfg["backbone"]["swin"]["depths"] \
+        if cfg["backbone"].get("use_encoder_attn") else []
+    return cfg, sum(swin)
+
+
+def phase_small_model(kind):
     from transoar_tpu_torch.models.transoarnet import build_model
-    from transoar_tpu_torch.presets import tiny_flagship_config
     from transoar_tpu_torch.utils.weights import random_state_dict
 
-    cfg = tiny_flagship_config()
-    assert cfg["backbone"]["stage0_pack"] == 4
+    cfg, windows = _tiny(kind)
     outs = {}
     for device in ("cpu", "cuda"):
         model = build_model(cfg, dtype=torch.float32, device=device).eval()
         model.load_state_dict(random_state_dict(model, SEED))
         x = np.random.default_rng(SEED).normal(
             size=(1, *cfg["augmentation"]["patch_size"], 1))
-        before = _launches()[0]
+        before = _counts()
         with torch.inference_mode():
             out = model(torch.as_tensor(x, dtype=torch.float32,
                                         device=device))
         torch.cuda.synchronize()
-        launched = _launches()[0] - before
-        if launched != (2 if device == "cuda" else 0):
-            fail(f"small model on {device}: {launched} packed_conv launches")
+        after = _counts()
+        launched = (after["packed_conv"] - before["packed_conv"],
+                    after["fused_window_attention"]
+                    - before["fused_window_attention"])
+        want = (2, windows) if device == "cuda" else (0, 0)
+        if launched != want:
+            fail(f"small {kind} model on {device}: packed_conv / window "
+                 f"launches {launched}, want {want}")
         outs[device] = {k: v.cpu() for k, v in out.items()}
     errs = {}
     for key, tol in (("pred_logits", 1e-3), ("aux_logits", 1e-3),
@@ -294,8 +555,8 @@ def phase_small_model():
         torch.testing.assert_close(outs["cuda"][key], outs["cpu"][key],
                                    rtol=0, atol=tol)
         errs[key] = (outs["cuda"][key] - outs["cpu"][key]).abs().max().item()
-    print(f"small model: card vs CPU max abs diff {json.dumps(errs)}",
-          flush=True)
+    print(f"small {kind} model: card vs CPU max abs diff {json.dumps(errs)}; "
+          f"card launches packed_conv / window {launched}", flush=True)
 
 
 def _small_train_step(cfg, device, batch):
@@ -311,21 +572,21 @@ def _small_train_step(cfg, device, batch):
     optimizer, scheduler = make_optimizer(model, cfg, 1)
     step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
                            cfg)
-    counts = _launches()
+    counts = _counts()
     losses = step({k: torch.as_tensor(v, device=device)
                    for k, v in batch.items()})
     torch.cuda.synchronize()
-    launched = tuple(b - a for a, b in zip(counts, _launches()))
+    after = _counts()
+    launched = {k: after[k] - counts[k] for k in after if after[k] > counts[k]}
     grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
     after = {n: p.detach().cpu() for n, p in model.named_parameters()}
     return float(losses["total"]), grads, before, after, launched
 
 
-def phase_small_train():
+def phase_small_train(kind):
     from transoar_tpu_torch.data.synthetic import make_case
-    from transoar_tpu_torch.presets import tiny_flagship_config
 
-    cfg = tiny_flagship_config()
+    cfg, windows = _tiny(kind)
     cfg["trainer"]["precision"] = "float32"
     cfg["augmentation"]["use_augmentation"] = False
     rng = np.random.default_rng(SEED)
@@ -335,12 +596,16 @@ def phase_small_train():
              "seg": np.stack([c[1] for c in cases])}
     cpu = _small_train_step(cfg, "cpu", batch)
     card = _small_train_step(cfg, "cuda", batch)
-    if cpu[4] != (0, 0, 0) or card[4] != STEP_LAUNCHES:
-        fail(f"small train step launches: CPU {cpu[4]}, card {card[4]}, "
-             f"want (0, 0, 0) and {STEP_LAUNCHES}")
+    want = dict(STEP_LAUNCHES)
+    if windows:
+        want.update(fused_window_attention=windows,
+                    fused_window_attention_bwd=windows)
+    if cpu[4] or card[4] != want:
+        fail(f"small {kind} train step launches: CPU {cpu[4]}, card "
+             f"{card[4]}, want none and {want}")
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
     if loss_rel > 1e-4:
-        fail(f"small train step loss: card {card[0]} vs CPU {cpu[0]}")
+        fail(f"small {kind} train step loss: card {card[0]} vs CPU {cpu[0]}")
     total = torch.linalg.vector_norm(torch.stack(
         [g.norm() for g in cpu[1].values()])).item()
     floor = 1e-5 * total
@@ -353,7 +618,8 @@ def phase_small_train():
         rel = ((ours - g).norm() / max(g.norm().item(), floor)).item()
         worst = max(worst, rel)
         if rel >= 1e-3:
-            fail(f"small train step gradient {name}: rel-L2 {rel:.2e}")
+            fail(f"small {kind} train step gradient {name}: rel-L2 "
+                 f"{rel:.2e}")
     lrs = {"backbone": float(cfg["trainer"]["lr_backbone"]),
            "neck": float(cfg["trainer"]["lr"])}
     for name, g in cpu[1].items():
@@ -367,39 +633,39 @@ def phase_small_train():
         torch.testing.assert_close(
             (card[3][name] - card[2][name])[decided],
             (cpu[3][name] - cpu[2][name])[decided], rtol=0.05, atol=0.25 * lr)
-    print(f"small train step: card vs CPU loss rel {loss_rel:.2e}, worst "
-          f"gradient rel-L2 {worst:.2e} over {len(cpu[1]) - len(negligible)} "
-          f"tensors, AdamW deltas within tolerance; card launches "
-          f"forward/dx/dw {card[4]}", flush=True)
+    print(f"small {kind} train step: card vs CPU loss rel {loss_rel:.2e}, "
+          f"worst gradient rel-L2 {worst:.2e} over "
+          f"{len(cpu[1]) - len(negligible)} tensors, AdamW deltas within "
+          f"tolerance; card launches {json.dumps(card[4])}", flush=True)
 
 
-def phase_serving():
+def _serve(cfg, name, volumes):
+    """Save a seeded random run of ``cfg`` and serve ``volumes`` through
+    predict.main with every count at 0 before; returns the records, the
+    counts and the peak memory."""
     from transoar_tpu_torch import predict
-    from transoar_tpu_torch.presets import (flagship_config, save_random_run,
-                                            write_ct_volumes)
+    from transoar_tpu_torch.presets import save_random_run, write_ct_volumes
 
-    cfg = flagship_config()
     cfg["foreground_voxel_statistics"] = {"percentile_00_5": -1000.0,
                                           "percentile_99_5": 1000.0}
-    organs = cfg["neck"]["num_organs"]
     with tempfile.TemporaryDirectory() as tmp:
-        save_random_run(cfg, Path(tmp) / "runs" / "foc_dec_amos", SEED)
-        inputs = write_ct_volumes(tmp, VOLUME_SHAPES, SEED)
+        save_random_run(cfg, Path(tmp) / "runs" / name, SEED)
+        inputs = write_ct_volumes(tmp, volumes, SEED)
 
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
             torch.cuda.reset_peak_memory_stats()
             _reset_launches()
-            records = predict.main(["--run", "foc_dec_amos", "--input",
-                                    *inputs])
-            launches = _launches()
+            records = predict.main(["--run", name, "--input", *inputs])
+            counts = _counts()
         finally:
             os.chdir(cwd)
     peak = torch.cuda.max_memory_allocated()
 
-    if len(records) != N_REQUESTS:
-        fail(f"serving answered {len(records)} of {N_REQUESTS} requests")
+    organs = cfg["neck"]["num_organs"]
+    if len(records) != len(volumes):
+        fail(f"{name} serving answered {len(records)} of {len(volumes)}")
     for rec in records:
         dets = rec["detections"]
         if len(dets) != organs:
@@ -412,41 +678,69 @@ def phase_serving():
             fail(f"{rec['input']}: boxes outside [0, 1]")
         if sorted(d["class"] for d in dets) != list(range(1, organs + 1)):
             fail(f"{rec['input']}: not one detection per organ")
-    if launches != (2 * N_REQUESTS, 0, 0):
-        fail(f"serving launched forward/dx/dw {launches} times, want "
-             f"({2 * N_REQUESTS}, 0, 0)")
+    return records, counts, peak
+
+
+def _serving_line(name, cfg, records, peak, counts):
     fwd = [1e3 * r["forward_s"] for r in records]
     tot = [1e3 * r["total_s"] for r in records]
     grid = "x".join(map(str, cfg["augmentation"]["patch_size"]))
-    print(f"serving: {N_REQUESTS} requests at {grid}, {organs} "
-          f"detections each; forward ms {fwd} (median "
-          f"{statistics.median(fwd):.1f}); end to end ms {tot} (median "
-          f"{statistics.median(tot):.1f}); peak device memory "
-          f"{peak / 2**30:.2f} GiB; packed_conv launches {launches[0]}",
+    print(f"{name}: {len(records)} requests at {grid}, "
+          f"{cfg['neck']['num_organs']} detections each; forward ms {fwd} "
+          f"(median {statistics.median(fwd):.1f}); end to end ms {tot} "
+          f"(median {statistics.median(tot):.1f}); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}",
           flush=True)
-    return launches
 
 
-def phase_training():
+def phase_serving():
+    from transoar_tpu_torch.presets import flagship_config
+
+    cfg = flagship_config()
+    records, counts, peak = _serve(cfg, "foc_dec_amos", VOLUME_SHAPES)
+    want = {"packed_conv": 2 * N_REQUESTS}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"serving launched {got}, want {want}")
+    _serving_line("serving", cfg, records, peak, counts)
+    return counts
+
+
+def phase_swin_serving():
+    from transoar_tpu_torch.presets import swin_fpn_config
+
+    cfg = swin_fpn_config()
+    records, counts, peak = _serve(cfg, "swin_fpn_visceral", SWIN_VOLUMES)
+    n = len(SWIN_VOLUMES)
+    want = {"packed_conv": 2 * n,
+            "fused_window_attention": SWIN_WINDOW_LAUNCHES * n}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"Swin serving launched {got}, want {want}")
+    _serving_line("swin serving", cfg, records, peak, counts)
+    return counts
+
+
+def _train(cfg, name, train_cases, val_cases, epochs):
+    """train.train on a synthetic dataset of cfg's grid, with every count at
+    0 before; checks losses, moved parameters and model_last.pt; returns
+    (trainer, counts, peak, data_s, run_s)."""
     from transoar_tpu_torch import train
     from transoar_tpu_torch.data.synthetic import generate_dataset
     from transoar_tpu_torch.models.transoarnet import build_model
-    from transoar_tpu_torch.presets import flagship_config
     from transoar_tpu_torch.utils.io import load_json
 
-    cfg = flagship_config(batch_size=BATCH)
-    cfg.update(experiment_name="foc_dec_amos_smoke", dataset="synthetic",
-               debug_mode=False)
+    cfg.update(experiment_name=name, dataset="synthetic", debug_mode=False)
     cfg["augmentation"]["use_augmentation"] = False
-    cfg["trainer"].update(epochs=EPOCHS, val_interval=1)
-    organs = cfg["neck"]["num_organs"]
+    cfg["trainer"].update(epochs=epochs, val_interval=1)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ds = generate_dataset(
             Path(tmp) / "dataset", name="synthetic",
             shape=tuple(cfg["augmentation"]["patch_size"]),
-            num_classes=organs, num_train=TRAIN_CASES, num_val=VAL_CASES,
-            num_test=0, seed=SEED)
+            num_classes=cfg["neck"]["num_organs"], num_train=train_cases,
+            num_val=val_cases, num_test=0, seed=SEED)
         cfg.update(load_json(ds / "data_info.json"))
         data_s = time.perf_counter() - t0
 
@@ -461,71 +755,115 @@ def phase_training():
                 resume=None, auto_resume=False))
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            launches = _launches()
+            counts = _counts()
             peak = torch.cuda.max_memory_allocated()
-            last = Path(tmp) / "runs" / cfg["experiment_name"] / \
-                "model_last.pt"
-            if not last.exists():
-                fail("training wrote no model_last.pt")
+            if not (Path(tmp) / "runs" / name / "model_last.pt").exists():
+                fail(f"{name} training wrote no model_last.pt")
         finally:
             os.chdir(cwd)
 
-    steps = EPOCHS * (TRAIN_CASES // BATCH)
-    val_batches = (EPOCHS + 1) * (VAL_CASES // BATCH)
-    want = (STEP_LAUNCHES[0] * steps + 2 * val_batches,
-            STEP_LAUNCHES[1] * steps, STEP_LAUNCHES[2] * steps)
-    if launches != want:
-        fail(f"training launched forward/dx/dw {launches}, want {want}")
     train_losses = [h["train"]["total"] for h in trainer.history
                     if "train" in h]
-    if len(train_losses) != EPOCHS or not np.isfinite(train_losses).all():
-        fail(f"training losses {train_losses}")
+    if len(train_losses) != epochs or not np.isfinite(train_losses).all():
+        fail(f"{name} training losses {train_losses}")
     fresh = build_model(cfg, device="cpu", generator=torch.Generator()
                         .manual_seed(int(cfg["seed"])))
     moved = [n for n, p in trainer._model.state_dict().items()
              if not torch.equal(p.cpu(), fresh.state_dict()[n])]
     if len(moved) < 0.9 * len(fresh.state_dict()):
-        fail(f"training changed only {len(moved)} of "
+        fail(f"{name} training changed only {len(moved)} of "
              f"{len(fresh.state_dict())} tensors")
+    steps = epochs * (train_cases // BATCH)
+    if len(trainer.clock.ms) != steps:
+        fail(f"{len(trainer.clock.ms)} step times for {steps} steps")
+    return trainer, counts, peak, data_s, run_s
+
+
+def _training_result(trainer, epochs, counts, peak, data_s, run_s):
     step_ms = trainer.clock.ms
-    if len(step_ms) != steps:
-        fail(f"{len(step_ms)} step times for {steps} steps")
+    steps = len(step_ms)
     median = statistics.median(step_ms[1:])
-    per_epoch = steps // EPOCHS
-    epochs = [h for h in trainer.history if "train" in h]
-    loop_s = [h["train_s"] for h in epochs]
-    loop_rate = [h["train_volumes"] / t for h, t in zip(epochs, loop_s)]
+    per_epoch = steps // epochs
+    hist = [h for h in trainer.history if "train" in h]
+    loop_s = [h["train_s"] for h in hist]
     # wall time of the loop in which the compute stream runs no step
     outside = [1 - sum(step_ms[i * per_epoch:(i + 1) * per_epoch])
                / (1e3 * t) for i, t in enumerate(loop_s)]
-    result = {"steps": steps, "step_ms": step_ms,
-              "step_ms_median_after_first": median,
-              "step_volumes_per_s": BATCH * 1e3 / median,
-              "loop_s_per_epoch": loop_s,
-              "loop_volumes_per_s_per_epoch": loop_rate,
-              "loop_share_outside_steps_per_epoch": outside,
-              "peak_memory_gib": peak / 2 ** 30,
-              "launches_fwd_dx_dw": list(launches),
-              "train_total_loss_per_epoch": train_losses,
-              "val_mAP_coco": [h["metrics"]["mAP_coco"]
-                               for h in trainer.history],
-              "dataset_s": data_s, "run_s": run_s}
+    return {"steps": steps, "step_ms": step_ms,
+            "step_ms_median_after_first": median,
+            "step_volumes_per_s": BATCH * 1e3 / median,
+            "loop_s_per_epoch": loop_s,
+            "loop_volumes_per_s_per_epoch": [
+                h["train_volumes"] / t for h, t in zip(hist, loop_s)],
+            "loop_share_outside_steps_per_epoch": outside,
+            "peak_memory_gib": peak / 2 ** 30,
+            "launches": {k: v for k, v in counts.items() if v},
+            "train_total_loss_per_epoch": [h["train"]["total"]
+                                           for h in hist],
+            "val_mAP_coco": [h["metrics"]["mAP_coco"]
+                             for h in trainer.history],
+            "dataset_s": data_s, "run_s": run_s}
+
+
+def phase_training():
+    from transoar_tpu_torch.presets import flagship_config
+
+    cfg = flagship_config(batch_size=BATCH)
+    trainer, counts, peak, data_s, run_s = _train(
+        cfg, "foc_dec_amos_smoke", TRAIN_CASES, VAL_CASES, EPOCHS)
+    steps = EPOCHS * (TRAIN_CASES // BATCH)
+    val_batches = (EPOCHS + 1) * (VAL_CASES // BATCH)
+    want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
+    want["packed_conv"] += 2 * val_batches
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"training launched {got}, want {want}")
+    result = _training_result(trainer, EPOCHS, counts, peak, data_s, run_s)
     print(f"training: foc_dec_amos 256x256x128 batch {BATCH} bf16, "
           f"{json.dumps(result)}", flush=True)
-    return launches
+    return counts
 
 
-def _entry(name, replaces, launches, rows, path_rows):
+def phase_swin_training():
+    from transoar_tpu_torch.presets import swin_fpn_config
+
+    cfg = swin_fpn_config(batch_size=BATCH)
+    if float(cfg["trainer"]["clip_max_norm"]) > 0:
+        fail("swin_fpn_visceral clips its gradients: clip_max_norm > 0")
+    trainer, counts, peak, data_s, run_s = _train(
+        cfg, "swin_fpn_visceral_smoke", SWIN_TRAIN_CASES, SWIN_VAL_CASES, 1)
+    steps = SWIN_TRAIN_CASES // BATCH
+    val_batches = 2 * (SWIN_VAL_CASES // BATCH)  # before and after epoch 1
+    want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
+    want["packed_conv"] += 2 * val_batches
+    want.update(fused_window_attention=SWIN_WINDOW_LAUNCHES
+                * (steps + val_batches),
+                fused_window_attention_bwd=SWIN_WINDOW_LAUNCHES * steps)
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"Swin training launched {got}, want {want}")
+    if peak >= 40 * 2 ** 30:
+        fail(f"Swin training peak memory {peak / 2 ** 30:.2f} GiB >= 40")
+    result = _training_result(trainer, 1, counts, peak, data_s, run_s)
+    grid = "x".join(map(str, cfg["augmentation"]["patch_size"]))
+    print(f"swin training: swin_fpn_visceral {grid} batch {BATCH} bf16, "
+          f"{json.dumps(result)}", flush=True)
+    return counts
+
+
+def _entry(name, replaces, launches, rows, path_rows,
+           source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
     shapes, one launch each."""
+    summed = [k for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                          "fwd_bwd_ms", "library_fwd_bwd_ms")
+              if k in path_rows[0]]
     return {
-        "name": name, "route": "cuda",
-        "source": "transoar_tpu_torch/csrc/packed_conv.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        **{k: sum(r[k] for r in path_rows)
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        **{k: sum(r[k] for r in path_rows) for k in summed},
         "bound_by": ("operations" if any(r["bound_by"] == "operations"
                                          for r in path_rows) else "bytes"),
         "shapes": [r for r in rows if "ms" in r],
@@ -537,20 +875,45 @@ def main():
     phase_build()
     fwd_rows = phase_kernel()
     dx_rows, dw_rows = phase_backward()
-    phase_small_model()
-    phase_small_train()
-    serving = phase_serving()
-    training = phase_training()
+    win_rows, win_bwd_rows = phase_window_kernels()
+    conv2d_rows = phase_conv2d()
+    for kind in ("flagship", "swin"):
+        phase_small_model(kind)
+        phase_small_train(kind)
+    paths = {"serving": phase_serving(), "training": phase_training(),
+             "swin_serving": phase_swin_serving(),
+             "swin_training": phase_swin_training()}
     src = "transoar_tpu/ops/pallas/packed_conv.py"
+    wsrc = "transoar_tpu/ops/pallas/window_attention.py"
+    timed = [r for r in win_rows if "ms" in r]
+
+    def flagship(rows):
+        return [r for r in rows if r.get("path") == "training"]
+
     kernels = [
-        _entry("packed_conv", f"{src}:166", training[0], fwd_rows,
-               [r for r in fwd_rows if r.get("path") == "training"]),
-        _entry("packed_conv_dx", f"{src}:233", training[1], dx_rows,
-               [r for r in dx_rows if "ms" in r]),
-        _entry("packed_conv_dw", f"{src}:191", training[2], dw_rows,
-               [r for r in dw_rows if "ms" in r]),
+        _entry("packed_conv", f"{src}:166",
+               paths["training"]["packed_conv"], fwd_rows,
+               flagship(fwd_rows)),
+        _entry("packed_conv_dx", f"{src}:233",
+               paths["training"]["packed_conv_dx"], dx_rows,
+               flagship(dx_rows)),
+        _entry("packed_conv_dw", f"{src}:191",
+               paths["training"]["packed_conv_dw"], dw_rows,
+               flagship(dw_rows)),
+        _entry("fused_window_attention", f"{wsrc}:140",
+               paths["swin_training"]["fused_window_attention"], win_rows,
+               timed, "transoar_tpu_torch/csrc/window_attention.cu"),
+        _entry("fused_window_attention_bwd", f"{wsrc}:159",
+               paths["swin_training"]["fused_window_attention_bwd"],
+               win_bwd_rows, [r for r in win_bwd_rows if "ms" in r],
+               "transoar_tpu_torch/csrc/window_attention.cu"),
+        _entry("conv2d_3x3", "transoar_tpu/ops/pallas/conv2d.py:43",
+               sum(p["conv2d_3x3"] for p in paths.values()), conv2d_rows,
+               conv2d_rows),
     ]
-    kernels[0]["launches_serving"] = serving[0]
+    for entry in kernels:
+        entry["launches_by_path"] = {p: c[entry["name"]]
+                                     for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 """Where the port's serving forward, or its train step, spends its time,
 on the card.
 
-    python scripts/profile_torch_serving.py [--train] [--steps 5] \
-        [--trace PATH]
+    python scripts/profile_torch_serving.py [--config NAME] [--train] \
+        [--steps 5] [--trace PATH]
 
-Builds the full-width foc_dec_amos model of transoar_tpu_torch (256x256x128,
-bf16 compute, seeded random weights) on the CUDA device, warms up, and then
-reports for ``--steps`` forwards of one volume (serving, batch 1) or, with
-``--train``, train steps at batch 2 (``training.trainer.make_train_step``:
-forward with dropout, criterion, backward with the encoder's remat
-recompute, AdamW; augmentation off, two synthetic cases):
+Builds a full-width model of transoar_tpu_torch (``--config foc_dec_amos``,
+the default: 256x256x128; or ``swin_fpn_visceral``: 160x160x256 with Swin
+stages 2-5), bf16 compute, seeded random weights, on the CUDA device, warms
+up, and then reports for ``--steps`` forwards of one volume (serving, batch
+1) or, with ``--train``, train steps at batch 2
+(``training.trainer.make_train_step``: forward with dropout and DropPath,
+criterion, backward with the CNN stages' remat recompute, AdamW;
+augmentation off, two synthetic cases):
 
 - wall ms per forward / step (host clock around work that ends in a
   synchronize);
@@ -41,11 +43,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from transoar_tpu_torch.data.synthetic import make_case  # noqa: E402
 from transoar_tpu_torch.models.criterion import build_criterion  # noqa: E402
 from transoar_tpu_torch.models.transoarnet import build_model  # noqa: E402
-from transoar_tpu_torch.presets import flagship_config  # noqa: E402
+from transoar_tpu_torch.presets import (flagship_config,  # noqa: E402
+                                        swin_fpn_config)
 from transoar_tpu_torch.training.train_state import (  # noqa: E402
     make_optimizer)
 from transoar_tpu_torch.training.trainer import make_train_step  # noqa: E402
 from transoar_tpu_torch.utils.weights import random_state_dict  # noqa: E402
+
+
+CONFIGS = {"foc_dec_amos": flagship_config,
+           "swin_fpn_visceral": swin_fpn_config}
 
 
 def _timed_modules(model):
@@ -112,6 +119,9 @@ def _training(cfg, model):
 
 def main():
     parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default="foc_dec_amos",
+                        choices=sorted(CONFIGS),
+                        help="Which full-width model to profile.")
     parser.add_argument("--train", action="store_true",
                         help="Profile the batch-2 train step instead.")
     parser.add_argument("--steps", type=int, default=5)
@@ -124,7 +134,7 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi)
 
-    cfg = flagship_config(batch_size=2 if args.train else 1)
+    cfg = CONFIGS[args.config](batch_size=2 if args.train else 1)
     cfg["augmentation"]["use_augmentation"] = False
     model = build_model(cfg, device="cpu")
     model.load_state_dict(random_state_dict(model, 0))
@@ -170,6 +180,7 @@ def main():
     unit = "step" if args.train else "forward"
     print(json.dumps({
         "device": smi,
+        "config": args.config,
         "mode": "train step, batch 2" if args.train else "serving, batch 1",
         f"wall_ms_per_{unit}": walls,
         "wall_ms_median": wall,

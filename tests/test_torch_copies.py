@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's host-side modules against their
 originals, on the same inputs: NIfTI I/O, config I/O, anchors, presets,
-the synthetic dataset, the loader and the evaluator. Every copy must agree
-exactly (same numpy code)."""
+the synthetic dataset, the loader, the evaluator and the Swin window
+helpers. Every copy must agree exactly (same numpy code)."""
 
 import gzip
 import json
@@ -9,6 +9,7 @@ import logging
 
 import numpy as np
 import pytest
+import torch
 
 from tests.helpers import tiny_config
 from transoar_tpu import presets as jpresets
@@ -17,11 +18,12 @@ from transoar_tpu.data import nifti as jnifti
 from transoar_tpu.data import synthetic as jsynthetic
 from transoar_tpu.eval import evaluator as jevaluator
 from transoar_tpu.models import anchors as janchors
+from transoar_tpu.models import swin as jswin
 from transoar_tpu.utils import io as jio
 from transoar_tpu_torch import presets
 from transoar_tpu_torch.data import dataset, nifti, synthetic
 from transoar_tpu_torch.eval import evaluator
-from transoar_tpu_torch.models import anchors
+from transoar_tpu_torch.models import anchors, swin
 from transoar_tpu_torch.utils import io
 
 
@@ -112,6 +114,11 @@ def test_presets_match():
     assert presets.flagship_config(2, (64, 64, 32)) == \
         jpresets.flagship_config(2, (64, 64, 32))
     assert presets.tiny_flagship_config() == jpresets.tiny_flagship_config()
+    # the Swin preset is the config file with the same synthetic statistics
+    assert presets.swin_fpn_config(2) == jpresets.fill_synthetic_stats(
+        dict(jio.get_config("swin_fpn_visceral"),
+             trainer=dict(jio.get_config("swin_fpn_visceral")["trainer"],
+                          batch_size=2)))
     cfg = tiny_config()
     for key in ("bbox_properties", "labels"):
         cfg.pop(key)
@@ -173,3 +180,24 @@ def test_evaluator_matches(rng):
         ours.add(*args)
         ref.add(*args)
     assert ours.eval() == ref.eval()
+
+
+@pytest.mark.parametrize("spatial,shift", [((10, 10, 8), True),
+                                           ((10, 10, 4), True),
+                                           ((4, 6, 5), False)])
+def test_swin_window_helpers_match(spatial, shift):
+    window = (5, 5, 5)
+    sh = (2, 2, 2) if shift else (0, 0, 0)
+    ws, ss = swin.effective_window(spatial, window, sh)
+    assert (ws, ss) == jswin.effective_window(spatial, window, sh)
+    np.testing.assert_array_equal(swin.relative_position_index(ws),
+                                  jswin.relative_position_index(ws))
+    padded = tuple(-(-s // w) * w for s, w in zip(spatial, ws))
+    np.testing.assert_array_equal(
+        swin.shifted_window_regions(padded, ws, ss),
+        jswin.shifted_window_regions(padded, ws, ss))
+    x = np.random.default_rng(0).normal(size=(2, *padded, 3))
+    windows = swin.window_partition(x, ws)
+    np.testing.assert_array_equal(windows, jswin.window_partition(x, ws))
+    back = swin.window_reverse(torch.from_numpy(windows), ws, 2, *padded)
+    np.testing.assert_array_equal(back.numpy(), x)

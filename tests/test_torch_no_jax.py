@@ -25,7 +25,10 @@ for i, path in enumerate(%r):
     spec = importlib.util.spec_from_file_location(f"script{i}", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("transoar_tpu_torch.predict", "transoar_tpu_torch.train",
-             "transoar_tpu_torch.ops.kernels.packed_conv"):
+             "transoar_tpu_torch.ops.kernels.packed_conv",
+             "transoar_tpu_torch.ops.kernels.window_attention",
+             "transoar_tpu_torch.ops.kernels.conv2d",
+             "transoar_tpu_torch.models.swin"):
     assert name in names, name
 print(len(names))
 """ % SCRIPTS

@@ -1,28 +1,37 @@
-"""AttnFPN backbone, CNN path: multi-stage 3D CNN encoder + FPN decoder.
+"""AttnFPN backbone: multi-stage 3D CNN (or Swin) encoder + FPN decoder.
 
 Port of ``transoar_tpu/models/attn_fpn.py``. Module names follow the
-reference ``state_dict``: ``_encoder._stages.{i}._block.*``,
+reference ``state_dict``: ``_encoder._stages.{i}._block.*`` (CNN stages),
+``_encoder._stages.{i}.blocks.{j}.*`` and ``.downsample.*`` (Swin stages),
 ``_decoder._lateral.{j}``, ``_decoder._up.{k}`` (top-down order) and
 ``_decoder._out.{m}``. Layout is ``[B, S0, S1, S2, C]`` throughout.
+
+With ``use_encoder_attn`` the stages from 2 on are 3D Swin stages
+(``models/swin.py``), their stochastic-depth rates a linear schedule over
+all Swin blocks, sliced per stage. ``swin.blocked_attn`` (a TPU layout
+choice with the same values) is accepted and has no effect.
 
 The stride-1 stage takes the depth-packed chain whenever ``stage0_pack`` is
 set and the depth divides by it. The JAX package also gates it on batch
 size; that gate is a TPU speed choice, not semantics, and the port drops it.
 
-With ``remat`` (default true, as the JAX encoder's ``nn.remat``) each
+With ``remat`` (default true, as the JAX encoder's ``nn.remat``) each CNN
 encoder block runs under ``torch.utils.checkpoint`` when grad is enabled:
-its activations are recomputed in the backward instead of kept.
+its activations are recomputed in the backward instead of kept. Swin stages
+are not rematerialised, as in the JAX encoder.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from transoar_tpu_torch.models.layers import EncoderCnnBlock
+from transoar_tpu_torch.models.swin import EncoderSwinBlock
 from transoar_tpu_torch.ops.conv3d import Conv3d, ConvTranspose3d
 
 
@@ -38,10 +47,6 @@ def required_stages(config) -> list[int]:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.get("use_encoder_attn"):
-        raise NotImplementedError(
-            "Swin encoder stages (use_encoder_attn) are not ported yet: "
-            "ROADMAP Queue 1, Swin family")
     if cfg.get("use_decoder_attn"):
         raise NotImplementedError(
             "the deformable FPN refine (use_decoder_attn) is not ported yet: "
@@ -53,30 +58,59 @@ def _check_supported(cfg) -> None:
 
 
 class Encoder(nn.Module):
-    """Downsampling encoder; returns {"C{s}": ...} for stages >= first_out."""
+    """Downsampling encoder; returns {"C{s}": ...} for stages >= first_out.
+    ``input_shape`` (S0, S1, S2) sizes the Swin stages' bias tables."""
 
     def __init__(self, config: Dict[str, Any], first_out: int = 0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, input_shape=None):
         super().__init__()
         self.first_out = first_out
         self.remat = bool(config.get("remat", True))
         start = config["start_channels"]
         k = config.get("kernel_size", 3)
+        num_stages = config["num_stages"]
+        # stages from swin_from on are Swin stages (reference
+        # attn_fpn.py:172-185): blocks at the incoming channel count, then
+        # a merge that halves the resolution and doubles the channels
+        self.swin_from = 2 if config.get("use_encoder_attn") else num_stages
+        swin = config.get("swin", {})
+        if self.swin_from < num_stages:
+            depths = swin["depths"]
+            dpr = np.linspace(0.0, float(swin.get("drop_path_rate", 0.0)),
+                              sum(depths)).tolist()
         stages = []
         in_ch = config["in_channels"]
-        for s in range(config["num_stages"]):
-            stride = tuple(config["strides"][s])
-            pack = int(config.get("stage0_pack", 0)) \
-                if stride == (1, 1, 1) else 0
-            stages.append(EncoderCnnBlock(in_ch, start * 2 ** s, k, stride,
-                                          pack=pack, dtype=dtype))
+        spatial = None if input_shape is None else tuple(input_shape)
+        for s in range(num_stages):
+            if s >= self.swin_from:
+                i = s - self.swin_from
+                lo = sum(depths[:i])
+                stages.append(EncoderSwinBlock(
+                    in_ch, depths[i], swin["num_heads"][i],
+                    swin["window_size"], swin["mlp_ratio"], swin["qkv_bias"],
+                    dpr[lo:lo + depths[i]], swin.get("conv_merging", False),
+                    dtype, spatial))
+                stride = (2, 2, 2)  # the merge pads odd sizes
+            else:
+                stride = tuple(config["strides"][s])
+                pack = int(config.get("stage0_pack", 0)) \
+                    if stride == (1, 1, 1) else 0
+                stages.append(EncoderCnnBlock(in_ch, start * 2 ** s, k,
+                                              stride, pack=pack, dtype=dtype))
+            if spatial is not None:  # both round up
+                spatial = tuple(-(-n // st) for n, st in zip(spatial, stride))
             in_ch = start * 2 ** s
         self._stages = nn.ModuleList(stages)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> Dict[str, torch.Tensor]:
+        """``generator`` draws the Swin stages' DropPath masks."""
         outputs = {}
         for s, stage in enumerate(self._stages):
-            if self.remat and torch.is_grad_enabled():
+            if s >= self.swin_from:
+                x = stage(x, generator)
+            elif self.remat and torch.is_grad_enabled():
                 x = checkpoint(stage, x, use_reentrant=False)
             else:
                 x = stage(x)
@@ -134,11 +168,14 @@ class AttnFPN(nn.Module):
     """Backbone = Encoder + FPN Decoder (reference attn_fpn.py:18-29)."""
 
     def __init__(self, config: Dict[str, Any],
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, input_shape=None):
         super().__init__()
         _check_supported(config)
-        self._encoder = Encoder(config, min(required_stages(config)), dtype)
+        self._encoder = Encoder(config, min(required_stages(config)), dtype,
+                                input_shape)
         self._decoder = Decoder(config, dtype)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self._decoder(self._encoder(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> Dict[str, torch.Tensor]:
+        return self._decoder(self._encoder(x, generator))

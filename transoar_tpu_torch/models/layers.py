@@ -7,9 +7,9 @@ same places. Parameter names follow the reference torch ``state_dict``
 (``_block.0.weight``, ``in_proj_weight``, ``linear1``...), which the weight
 bridge (``utils/weights.py``) and ``transoar_tpu.utils.torch_import`` rely on.
 
-Dropout (``dropout``) draws its masks from the ``torch.Generator`` passed
-to ``forward`` and applies only in ``train()`` mode, as flax's
-``nn.Dropout`` with ``deterministic=False``.
+Dropout (``dropout``) and stochastic depth (``drop_path``) draw their masks
+from the ``torch.Generator`` passed to ``forward`` and apply only in
+``train()`` mode, as flax's ``nn.Dropout`` with ``deterministic=False``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,19 @@ def dropout(x: torch.Tensor, p: float,
     if p <= 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def drop_path(x: torch.Tensor, p: float,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """Stochastic depth: zero whole samples with probability ``p`` (one draw
+    per index of the first axis, broadcast over the others) and scale the
+    rest by 1 / (1 - p), as flax ``nn.Dropout`` with ``broadcast_dims`` over
+    every non-batch axis; identity at p = 0."""
+    if p <= 0.0:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

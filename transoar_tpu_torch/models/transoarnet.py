@@ -40,7 +40,8 @@ class TransoarNet(nn.Module):
         C = neck["hidden_dim"]
         self.input_level = neck["input_levels"]
         self.aux_loss = bool(neck.get("aux_loss"))
-        self._backbone = AttnFPN(config["backbone"], dtype)
+        self._backbone = AttnFPN(config["backbone"], dtype,
+                                 config["augmentation"]["patch_size"])
         self._pos_enc = build_pos_enc(neck["pos_encoding"], C, dtype)
         self._neck = FocusedDecoder(neck, attn_bias, roi, dtype)
         self._query_embed = nn.Embedding(neck["num_queries"], 2 * C)
@@ -72,8 +73,9 @@ class TransoarNet(nn.Module):
         """x [B, S0, S1, S2, C_in] -> pred_logits [B, Q, 1],
         pred_boxes [B, Q, 6] and, with aux_loss, aux_logits [L-1, B, Q, 1],
         aux_boxes [L-1, B, Q, 6]; all f32. In ``train()`` mode the neck's
-        dropout masks come from ``generator``."""
-        src = self._backbone(x)[self.input_level]
+        dropout masks and the Swin stages' DropPath masks come from
+        ``generator``."""
+        src = self._backbone(x, generator)[self.input_level]
         pos = self._pos_enc(src)
         hs = self._neck(src, self._query_embed.weight, pos,
                         generator)  # [L, B, Q, C]

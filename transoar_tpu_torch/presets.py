@@ -5,6 +5,9 @@ and dry runs, which have no dataset and no trained weights on disk.
   copies of the JAX package's presets (``transoar_tpu/presets.py``; the
   tests pin them): foc_dec_amos at 256x256x128 with synthetic dataset
   statistics, and a structurally faithful tiny variant.
+- ``swin_fpn_config``, ``tiny_swin_config``: the same for swin_fpn_visceral
+  (SwinFPN + Focused Decoder, 160x160x256, 20 organs), and a tiny variant
+  whose Swin stages keep 5x5x5 windows, shifted and clamped.
 - ``save_random_run``: a run directory (``training/checkpoints.py`` layout)
   whose every parameter is drawn from a seed, for ``predict`` to restore.
 - ``write_ct_volumes``: CT-like int16 NIfTI volumes with LPS-style affines,
@@ -82,6 +85,42 @@ def tiny_flagship_config(num_organs=6, patch=(32, 32, 16)):
     cfg["backbone"]["fpn_channels"] = 96
     cfg["backbone"]["out_fmaps"] = ["P2"]
     cfg["neck"]["input_levels"] = "P2"
+    del cfg["bbox_properties"]
+    del cfg["labels"]
+    return fill_synthetic_stats(cfg)
+
+
+def swin_fpn_config(batch_size=None, patch_size=None):
+    """SwinFPN + Focused Decoder on VISCERAL-shaped volumes
+    (swin_fpn_visceral)."""
+    cfg = fill_synthetic_stats(get_config("swin_fpn_visceral"))
+    if batch_size is not None:
+        cfg["trainer"]["batch_size"] = batch_size
+    if patch_size is not None:
+        cfg["augmentation"]["patch_size"] = list(patch_size)
+    return cfg
+
+
+def tiny_swin_config(num_organs=6, patch=(40, 40, 16)):
+    """Tiny swin_fpn_visceral for the CPU and the card's small checks: 4
+    stages (CNN 8 -> 16 channels, Swin 16 -> 32 -> 64), 2 blocks per Swin
+    stage with 2 heads (d = 8, then 16) and 5x5x5 windows. At 40x40x16
+    stage 2 pads 20x20x8 to 32 windows per volume, shifted in its second
+    block; stage 3's depth of 4 clamps the window to 5x5x4 and drops that
+    axis's shift."""
+    cfg = swin_fpn_config(batch_size=2, patch_size=patch)
+    cfg["neck"]["num_organs"] = num_organs
+    cfg["neck"]["num_queries"] = num_organs * 27
+    cfg["neck"]["hidden_dim"] = 96
+    cfg["neck"]["dim_feedforward"] = 128
+    cfg["neck"]["input_levels"] = "P2"
+    backbone = cfg["backbone"]
+    backbone["start_channels"] = 8
+    backbone["num_stages"] = 4
+    backbone["strides"] = [[1, 1, 1]] + [[2, 2, 2]] * 3
+    backbone["fpn_channels"] = 96
+    backbone["out_fmaps"] = ["P2"]
+    backbone["swin"].update(depths=[2, 2], num_heads=[2, 2])
     del cfg["bbox_properties"]
     del cfg["labels"]
     return fill_synthetic_stats(cfg)

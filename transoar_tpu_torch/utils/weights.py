@@ -1,8 +1,8 @@
 """Weight bridge: the JAX package's flax parameters -> the port's state_dict.
 
 ``state_dict_from_jax(params, config)`` takes the flax parameter tree of a
-``transoar_tpu`` TransoarNet (Focused Decoder + CNN AttnFPN), as nested
-dicts of numpy arrays, and returns the port's ``state_dict``. The port names
+``transoar_tpu`` TransoarNet (Focused Decoder + AttnFPN, with CNN or Swin
+encoder stages), as nested dicts of numpy arrays, and returns the port's ``state_dict``. The port names
 its parameters as the reference torch model does, so this is the inverse of
 ``transoar_tpu.utils.torch_import.map_reference_state_dict``: transposes
 of conv and dense kernels, and the ``[C, H, hd]`` attention kernels flattened
@@ -66,6 +66,31 @@ def encoder_block(p):
                                 **conv_in_relu(p["ConvInReLU_1"], 3)})
 
 
+def swin_block(p):
+    """flax SwinBlock -> ``norm1``, ``attn.*``, ``norm2``, ``mlp.fc{1,2}``
+    (the names ``torch_import._map_swin_stage`` reads)."""
+    return {**_prefixed("norm1", norm(p["norm1"])),
+            "attn.relative_position_bias_table": p["attn"]["rel_pos_bias"],
+            **_prefixed("attn.qkv", dense(p["attn"]["qkv"])),
+            **_prefixed("attn.proj", dense(p["attn"]["proj"])),
+            **_prefixed("norm2", norm(p["norm2"])),
+            **_prefixed("mlp.fc1", dense(p["mlp1"])),
+            **_prefixed("mlp.fc2", dense(p["mlp2"]))}
+
+
+def patch_merging(p):
+    return {**_prefixed("norm", norm(p["LayerNorm_0"])),
+            "reduction.weight": linear_weight(p["Dense_0"]["kernel"])}
+
+
+def swin_stage(p):
+    """flax EncoderSwinBlock -> ``blocks.{j}.*``, ``downsample.*``."""
+    sd = {}
+    for j in _stage_numbers(p, "block"):
+        sd.update(_prefixed(f"blocks.{j}", swin_block(p[f"block{j}"])))
+    return {**sd, **_prefixed("downsample", patch_merging(p["merge"]))}
+
+
 def mlp(p):
     n = len([k for k in p if k.startswith("Dense_")])
     out = {}
@@ -113,8 +138,10 @@ def state_dict_from_jax(params, config) -> dict:
     sd = {}
     enc = params["backbone"]["encoder"]
     for i in range(config["backbone"]["num_stages"]):
+        stage = enc[f"stage{i}"]
         sd.update(_prefixed(f"_backbone._encoder._stages.{i}",
-                            encoder_block(enc[f"stage{i}"])))
+                            swin_stage(stage) if "merge" in stage
+                            else encoder_block(stage)))
     dec = params["backbone"]["decoder"]
     for j, s in enumerate(_stage_numbers(dec, "lateral")):
         sd.update(_prefixed(f"_backbone._decoder._lateral.{j}",
