@@ -7,17 +7,22 @@ each printing a line; any failure exits non-zero before the result lines:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from csrc/, one nvcc per source, all
-   started together;
+   started together; the registers, shared memory and spill bytes of each
+   bf16 forward kernel of the band conv (generic, wide and fold);
 3. forward kernel vs plain: packed_conv against packed_conv_reference at
    the stage-0 shapes of the four paths (foc_dec_amos and
    swin_fpn_visceral, serving batch 1 and training batch 2) and a ragged
-   shape, bf16, with the median time of each over 20 runs, of cuDNN's
-   bf16 conv for scale, and the card's bound for the same work;
+   shape, bf16, the same bits when run twice, with the median time of each
+   over 20 runs, of the generic kernel (the mma.sync kernel which the
+   wide and fold kernels replaced on these shapes) at the same shapes,
+   of cuDNN's bf16 conv for scale, and the card's bound for the same work;
+   each row names the kernel's variant, its TFLOP/s and bound / ms;
 4. backward kernels vs plain: packed_conv_dx (bf16, rtol 1.6e-2 atol
-   1e-2) and packed_conv_dw (f32 result, rel-L2 <= 1e-4 against the f32
-   plain version of the same bf16 inputs, and bit-identical when run
-   twice) at both models' training shapes and a ragged shape, timed as
-   phase 3 (cuDNN's conv2d_input / conv2d_weight for scale);
+   1e-2, the same bits twice) and packed_conv_dw (f32 result, rel-L2 <=
+   1e-4 against the f32 plain version of the same bf16 inputs, and
+   bit-identical when run twice) at both models' training shapes and a
+   ragged shape, timed as phase 3 (cuDNN's conv2d_input / conv2d_weight for
+   scale; dx beside the generic kernel too);
 5. window attention kernels vs plain: fused_window_attention and its
    backward at each of swin_fpn_visceral's four Swin stages at batch 2
    (N = 125, d = 16; q, k, v as views of the qkv projection), shifted and
@@ -29,8 +34,8 @@ each printing a line; any failure exits non-zero before the result lines:
    ``attn_mask``) for scale: its forward beside the forward, its backward
    alone (on a retained graph) beside the backward, and forward +
    backward of both;
-6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain and
-   cuDNN on one shape;
+6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain,
+   the generic kernel and cuDNN on one shape;
 7. small models, CPU vs card: tiny f32 flagship-shaped and Swin-shaped
    models with the same seeded weights on the CPU (plain versions) and on
    the card (kernels), TF32 off; logits within 1e-3, boxes within 1e-4;
@@ -66,8 +71,10 @@ each printing a line; any failure exits non-zero before the result lines:
    peak memory under 40 GiB.
 
 Every path is driven with all kernel counts set to 0 just before it and
-read just after. Then one JSON line of per-kernel results and, last, the
-device line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+read just after; phases 9-12 also require every launch of the band conv's
+forward kernel (forward and dx) to have taken the wide or the fold
+variant, never the generic one. Then one JSON line of per-kernel results
+and, last, the device line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
 from __future__ import annotations
@@ -150,6 +157,26 @@ def _counts():
 def _reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+    variants = _kernels().variant_launches
+    for v in variants:
+        variants[v] = 0
+
+
+# the band conv's forward kernel launches by variant, per main path
+VARIANTS_BY_PATH = {}
+
+
+def _check_variants(path, counts):
+    """The band conv's forward kernel ran as fold for each first conv (Cin
+    = 6) and as wide for each second conv and each dx, and never as the
+    generic kernel; keeps the counts in VARIANTS_BY_PATH."""
+    got = {k: v for k, v in _kernels().variant_launches.items() if v}
+    n = counts["packed_conv"] // 2
+    want = {k: v for k, v in (("fold", n),
+                              ("wide", n + counts["packed_conv_dx"])) if v}
+    if got != want:
+        fail(f"{path}: band conv kernel variants {got}, want {want}")
+    VARIANTS_BY_PATH[path] = got
 
 
 def phase_device():
@@ -177,6 +204,12 @@ def phase_build():
                  if "registers" in line or "spill" in line]
         print(f"build: {name}.cu " + " | ".join(ptxas), flush=True)
     print(f"build: {len(names)} sources in {secs:.2f} s", flush=True)
+    pc = _kernels()
+    attrs = {f"{v}<{c}>": pc.kernel_attrs(v, c)
+             for v, c in (("generic", 96), ("wide", 64), ("wide", 96),
+                          ("wide", 144), ("fold", 96))}
+    print(f"build: band conv forward kernels (registers, shared memory, "
+          f"spill bytes per thread) {json.dumps(attrs)}", flush=True)
 
 
 def _median_ms(fn, runs=20, warmup=3):
@@ -208,6 +241,20 @@ def _conv_work(shape, cin, cout):
     return 2 * pixels * 9 * cin * cout, pixels
 
 
+def _timed_conv(row, flops, ours, generic):
+    """Adds the kernel's and the generic kernel's median ms, the achieved
+    TFLOP/s and bound / ms to ``row``."""
+    row["ms"] = _median_ms(ours)
+    row["generic_ms"] = _median_ms(generic)
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+
+
+def _same_bits(name, fn, first):
+    if not torch.equal(fn(), first):
+        fail(f"{name} differs from itself on a rerun")
+
+
 def _inputs(gen, shape, cout):
     cin = shape[-1]
     xh = torch.randn(shape, generator=gen, device="cuda").bfloat16()
@@ -229,7 +276,10 @@ def phase_kernel():
         ref = pc.packed_conv_reference(xh, wp)
         torch.cuda.synchronize()
         torch.testing.assert_close(ours, ref, rtol=1.6e-2, atol=1e-2)
+        _same_bits(f"packed_conv at {shape}x{cout}",
+                   lambda: pc.packed_conv(xh, wp), ours)
         row = {"shape": list(shape), "cout": cout,
+               "variant": pc._variant(xh, wp),
                "max_abs_err": (ours.float() - ref.float()).abs().max().item()}
         del ours, ref
         if path is not None:
@@ -239,7 +289,8 @@ def phase_kernel():
             x_nchw = xh.permute(0, 3, 1, 2)  # channels-last view
             w_oihw = wp.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-            row["ms"] = _median_ms(lambda: pc.packed_conv(xh, wp))
+            _timed_conv(row, flops, lambda: pc.packed_conv(xh, wp),
+                        lambda: pc._launch_conv(xh, wp, "generic"))
             row["plain_ms"] = _median_ms(
                 lambda: pc.packed_conv_reference(xh, wp))
             row["library_ms"] = _median_ms(
@@ -276,7 +327,11 @@ def phase_backward():
             ref = pc.packed_conv_dx_reference(dy, wp)
             torch.cuda.synchronize()
             torch.testing.assert_close(dx, ref, rtol=1.6e-2, atol=1e-2)
+            _same_bits(f"packed_conv_dx at {list(dy.shape)}x{cin}",
+                       lambda: pc.packed_conv_dx(dy, wp), dx)
+            wflip = wp.flip(0, 1).transpose(2, 3).contiguous()
             row = {"shape": list(dy.shape), "cout": cin,
+                   "variant": pc._variant(dy, wflip),
                    "max_abs_err": (dx.float() - ref.float()).abs().max()
                    .item()}
             del dx, ref
@@ -287,7 +342,11 @@ def phase_backward():
                 w_oihw = wp.permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
                 in_shape = (shape[0], cin, shape[1], shape[2])
-                row["ms"] = _median_ms(lambda: pc.packed_conv_dx(dy, wp))
+                # the generic kernel behind the same flip as the wrapper's
+                _timed_conv(row, flops, lambda: pc.packed_conv_dx(dy, wp),
+                            lambda: pc._launch_conv(
+                                dy, wp.flip(0, 1).transpose(2, 3)
+                                .contiguous(), "generic"))
                 row["plain_ms"] = _median_ms(
                     lambda: pc.packed_conv_dx_reference(dy, wp))
                 row["library_ms"] = _median_ms(
@@ -489,6 +548,8 @@ def phase_conv2d():
     from transoar_tpu_torch.ops.kernels.conv2d import (conv2d_3x3,
                                                        conv2d_3x3_reference)
 
+    pc = _kernels()
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     n, h, w, c, f = 8, 128, 128, 64, 64
     x = torch.randn((n, h, w, c), generator=gen, device="cuda").bfloat16()
@@ -498,14 +559,19 @@ def phase_conv2d():
     ref = conv2d_3x3_reference(x, wt)
     torch.cuda.synchronize()
     torch.testing.assert_close(ours, ref, rtol=1.6e-2, atol=1e-2)
+    _same_bits("conv2d_3x3", lambda: conv2d_3x3(x, wt), ours)
     row = {"shape": [n, h, w, c], "cout": f,
+           "variant": pc._variant(x, wt.bfloat16()),
            "max_abs_err": (ours.float() - ref.float()).abs().max().item()}
+    flops = 2 * n * h * w * 9 * c * f
     row["bound_ms"], row["bound_by"] = _bound(
-        2 * n * h * w * 9 * c * f, 2 * n * h * w * (c + f) + 4 * wt.numel())
+        flops, 2 * n * h * w * (c + f) + 4 * wt.numel())
     x_nchw = x.permute(0, 3, 1, 2)
     w_oihw = wt.bfloat16().permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
-    row["ms"] = _median_ms(lambda: conv2d_3x3(x, wt))
+    # the generic kernel behind the same cast as the wrapper's
+    _timed_conv(row, flops, lambda: conv2d_3x3(x, wt),
+                lambda: pc._launch_conv(x, wt.bfloat16(), "generic"))
     row["plain_ms"] = _median_ms(lambda: conv2d_3x3_reference(x, wt))
     row["library_ms"] = _median_ms(
         lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1))
@@ -703,6 +769,7 @@ def phase_serving():
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         fail(f"serving launched {got}, want {want}")
+    _check_variants("serving", counts)
     _serving_line("serving", cfg, records, peak, counts)
     return counts
 
@@ -718,6 +785,7 @@ def phase_swin_serving():
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         fail(f"Swin serving launched {got}, want {want}")
+    _check_variants("swin_serving", counts)
     _serving_line("swin serving", cfg, records, peak, counts)
     return counts
 
@@ -818,6 +886,7 @@ def phase_training():
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         fail(f"training launched {got}, want {want}")
+    _check_variants("training", counts)
     result = _training_result(trainer, EPOCHS, counts, peak, data_s, run_s)
     print(f"training: foc_dec_amos 256x256x128 batch {BATCH} bf16, "
           f"{json.dumps(result)}", flush=True)
@@ -842,6 +911,7 @@ def phase_swin_training():
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         fail(f"Swin training launched {got}, want {want}")
+    _check_variants("swin_training", counts)
     if peak >= 40 * 2 ** 30:
         fail(f"Swin training peak memory {peak / 2 ** 30:.2f} GiB >= 40")
     result = _training_result(trainer, 1, counts, peak, data_s, run_s)
@@ -855,8 +925,8 @@ def _entry(name, replaces, launches, rows, path_rows,
            source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
     shapes, one launch each."""
-    summed = [k for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                          "fwd_bwd_ms", "library_fwd_bwd_ms")
+    summed = [k for k in ("ms", "generic_ms", "plain_ms", "bound_ms",
+                          "library_ms", "fwd_bwd_ms", "library_fwd_bwd_ms")
               if k in path_rows[0]]
     return {
         "name": name, "route": "cuda", "source": source,
@@ -914,6 +984,9 @@ def main():
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]]
                                      for p, c in paths.items()}
+    # one kernel function under packed_conv and packed_conv_dx (and
+    # conv2d_3x3): its launches on each path by variant
+    kernels[0]["forward_kernel_variants_by_path"] = VARIANTS_BY_PATH
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ setup(
                                     "transoar_tpu_torch",
                                     "transoar_tpu_torch.*"]),
     package_data={"transoar_tpu.native": ["*.cpp"],
-                  "transoar_tpu_torch": ["csrc/*.cu"]},
+                  "transoar_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "scipy",

@@ -7,6 +7,8 @@ This file imports no jax, so it runs on a machine with a card and no JAX:
 
 Every test carries the ``cuda`` marker (registered in pytest.ini) and,
 without a CUDA device, skips (decided inside the fixture).
+The bf16 forward kernel has three variants chosen by shape (wide, fold,
+generic); each case names the one it must take and checks its count.
 Tolerance: the kernel and the plain version both accumulate in f32; in f32
 they differ only by summation order (1e-4), in bf16 by one rounding of the
 output (rtol 1.6e-2, atol 1e-2: two bf16 ulps). dw is f32 whatever its
@@ -18,6 +20,9 @@ run twice (a split reduction, no atomics).
 import pytest
 import torch
 
+from transoar_tpu_torch.ops.kernels import packed_conv as pc
+from transoar_tpu_torch.ops.kernels.conv2d import (conv2d_3x3,
+                                                   conv2d_3x3_reference)
 from transoar_tpu_torch.ops.kernels.packed_conv import (
     packed_conv, packed_conv_dw, packed_conv_dw_reference, packed_conv_dx,
     packed_conv_dx_reference, packed_conv_reference)
@@ -142,3 +147,67 @@ def test_packed_conv_kernel_unaligned_operands(cuda):
     assert x.data_ptr() % 16 and w.data_ptr() % 16
     torch.testing.assert_close(packed_conv(x, w), packed_conv_reference(x, w),
                                rtol=1.6e-2, atol=1e-2)
+
+
+def _launch_counted(fn, want, *args):
+    """fn(*args), checking that it launched the forward kernel once, as
+    variant ``want``; the result twice must be the same bits."""
+    before = dict(pc.variant_launches)
+    ours = fn(*args)
+    torch.cuda.synchronize()
+    after = pc.variant_launches
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {want: 1}
+    assert torch.equal(fn(*args), ours)  # no split-K, no atomics
+    return ours
+
+
+@pytest.mark.parametrize("shape,cout,variant", [
+    ((1, 9, 130, 144), 96, "wide"),   # odd H; W not a multiple of 128
+    ((2, 7, 100, 96), 144, "wide"),   # Cout 144 in one wgmma tile
+    ((1, 5, 33, 24), 96, "wide"),     # a last chunk of 8 channels
+    ((2, 3, 260, 64), 64, "wide"),    # three column tiles, odd H
+    ((2, 9, 20, 6), 96, "fold"),      # odd H; W < one tile
+    ((1, 5, 132, 4), 64, "fold"),     # a masked tail past 128 columns
+    ((1, 3, 8, 2), 144, "fold"),
+    ((2, 4, 18, 6), 96, "generic"),   # Cin = 6 with W % 4 != 0
+    ((3, 13, 70, 10), 40, "generic"),
+])
+def test_forward_variants_match_plain(cuda, shape, cout, variant):
+    x, w, _ = _operands(cuda, shape, cout, torch.bfloat16, seed=5)
+    assert pc._variant(x, w) == variant
+    ours = _launch_counted(packed_conv, variant, x, w)
+    torch.testing.assert_close(ours, packed_conv_reference(x, w),
+                               rtol=1.6e-2, atol=1e-2)
+
+
+def test_dx_takes_one_wide_tile(cuda):
+    """dx at 96 -> 144 (the second conv's input gradient): the wide kernel
+    with all 144 output channels in one tile."""
+    shape, cout = (2, 7, 140, 144), 96
+    _, w, dy = _operands(cuda, shape, cout, torch.bfloat16, seed=6)
+    ours = _launch_counted(packed_conv_dx, "wide", dy, w)
+    torch.testing.assert_close(ours, packed_conv_dx_reference(dy, w),
+                               rtol=1.6e-2, atol=1e-2)
+
+
+def test_conv2d_3x3_takes_the_wide_kernel(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((2, 11, 140, 64), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((3, 3, 64, 64), generator=gen, device=cuda) / 24
+    ours = _launch_counted(conv2d_3x3, "wide", x, w)
+    torch.testing.assert_close(ours, conv2d_3x3_reference(x, w),
+                               rtol=1.6e-2, atol=1e-2)
+
+
+def test_generic_kernel_on_request(cuda):
+    """The generic kernel takes the wide and fold shapes too (chip_smoke.py
+    times it against them); the wide and fold kernels refuse the others."""
+    for shape in ((1, 9, 130, 144), (2, 9, 20, 6)):
+        x, w, _ = _operands(cuda, shape, 96, torch.bfloat16, seed=8)
+        ours = _launch_counted(pc._launch_conv, "generic", x, w, "generic")
+        torch.testing.assert_close(ours, packed_conv_reference(x, w),
+                                   rtol=1.6e-2, atol=1e-2)
+    x, w, _ = _operands(cuda, (2, 4, 18, 6), 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="fold kernel does not take"):
+        pc._launch_conv(x, w, "fold")

@@ -18,36 +18,56 @@
 // What bounds it on the H100: at the flagship's second stage-0 conv
 // (Cin = 144, Cout = 96) every output pixel costs 9 * 144 * 96 * 2 = 248,832
 // FLOP against 480 bytes of bf16 input and output, about 520 FLOP per byte,
-// far above the card's ridge point: the conv is bound by arithmetic, so the
-// bf16 path must run on the tensor cores.
+// far above the card's ridge point (295): bound by arithmetic, so it must
+// run on wgmma, the only path to the tensor cores' full rate. The first conv
+// (Cin = 6, Cout = 96) does 54 multiply-adds per output value and writes 16
+// bytes for every byte it reads: bound by the bytes of its output.
 //
-// What the design does about it:
-// - bf16 (``conv_mma``): an implicit GEMM with M = output pixels, N = Cout,
-//   K = 9 taps x Cin, on warp-level mma.sync m16n8k16 (bf16 in, f32
-//   accumulate). A block owns TH x TW = 2 x 64 output pixels of one row bd
-//   and up to MMA_TN = 96 output channels (the flagship's Cout: each input
-//   patch is staged once for all of them). It loops over Cin in chunks of 16
-//   (one mma k-step per tap), staging the (TH + 2) x (TW + 2) x 16 input
-//   patch (zeros outside H and W, so no padded copy exists in device memory)
-//   and the 3 x 3 x 16 x 96 weight slice in shared memory; the whole band
-//   weight (248,832 bytes at 144 -> 96) is above the 227 KB a block may hold,
-//   so it is never resident at once. A tap's A operand is the patch shifted
-//   by (kh, kw): ldmatrix takes one row address per pixel, so the shift costs
-//   nothing. Rows of both tiles are padded so that ldmatrix is free of bank
-//   conflicts. Input chunks are loaded 16 bytes at a time when Cin % 8 == 0
-//   and x is 16-byte aligned, the weight when Cout % 8 == 0 and wp is
-//   aligned; otherwise element by element (Cin = 6 on the first conv: 12-byte
-//   pixels), and the padded channels are zeros.
+// What the design does about it: three bf16 kernels, one function, chosen
+// by shape in the wrapper (ops/kernels/packed_conv.py:_variant):
+// - wide (``conv_wide<N>``, Cin % 8 == 0, N = Cout in {64, 96, 144}): an
+//   implicit GEMM, M = 2 x 128 output pixels of two rows, N = all of Cout in
+//   one wgmma tile, K = 9 taps x Cin in chunks of 16 channels. One thread
+//   keeps a ring of 3-4 stages filled (TMA for the zero-padded input
+//   patch, one bulk copy for the weight chunk), signalled by mbarriers;
+//   two warpgroups run m64nNk16 wgmma with both operands read from
+//   shared memory by descriptor (no swizzle, K-major: a tap's shift is a
+//   descriptor 16 bytes per pixel further on) while the next chunks land.
+//   The epilogue stages bf16 rows in shared memory and writes 16-byte
+//   stores, a tile row being one contiguous span of y. A block streams the
+//   whole band weight (249 KB at 144 -> 96) through L2 once per 256 output
+//   pixels, half of conv_mma's 128: 4.08 GB of L2 reads at the flagship
+//   training shape against 8.15 GB.
+// - fold (``conv_fold<N>``, Cin 2, 4 or 6 with W * Cin % 8 == 0): the taps
+//   fold into K = 9 Cin <= 54, padded to 64 (4 k16 steps, not 9 mostly
+//   empty ones); the folded weight stays in shared memory; a persistent
+//   grid walks 2 x 128 tiles, fetching the next tile's input rows (one
+//   16-byte-aligned span per row) with cp.async while it computes; A is
+//   built in registers from those rows (wgmma with A from registers); the
+//   same staged, coalesced epilogue.
+// - generic (``conv_mma``, every other bf16 shape: Cin odd or above 8 and
+//   not a multiple of 8, other Cout, unaligned operands): warp-level
+//   mma.sync m16n8k16, a block of TH x TW = 2 x 64 output pixels and up to
+//   96 output channels, Cin in synchronous chunks of 16 channels staged in
+//   shared memory, ldmatrix with one row address per pixel (the shift by
+//   (kh, kw) costs nothing), element-wise loads where a pixel is not 16
+//   bytes aligned, stores straight from the accumulator fragment.
+// All three are deterministic: no split-K, no atomics.
 // - f32 (``conv_fma``): the same tiling idea on the CUDA cores in f32 FMA,
 //   for exact checks against f32 references: each thread keeps a TH x CPT
 //   register tile and reuses every input value for CPT channels and 3 taps.
-// Left for later work: wgmma and TMA with a pipelined chunk loop, skipping
-// the zero half of the band (conv3d.py:_packed_band_kernel), vector stores.
+// Left for later work: skipping the zero half of the band
+// (conv3d.py:_packed_band_kernel); a 2-block cluster multicasting each
+// weight chunk (halving the L2 weight traffic again); a persistent wide grid
+// whose epilogue overlaps the next tile's loads.
 
+#include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -235,6 +255,311 @@ conv_mma(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
             yp[co + e] = __float2bfloat16(acc[i][t][2 * half + e]);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on wgmma: the wide path (Cin % 8 == 0) and the folded-tap path
+// (Cin = 2, 4 or 6), one template over N = Cout each
+// ---------------------------------------------------------------------------
+
+constexpr int T_H = 2;                         // output rows per tile
+constexpr int T_W = 128;                       // output columns per tile
+constexpr int T_PIX = T_H * T_W;               // 256: two warpgroups x m128
+constexpr int TILE_THREADS = 2 * 128;          // two warpgroups, a row each
+
+// The accumulators of a tile: warpgroup g owns output row g, as two m64
+// tiles of 64 columns, each [64, N] in wgmma's D fragment (warp w of the
+// group rows 16w + lane / 4 (+ 8), columns 8j + 2 (lane % 4) + {0, 1}).
+// Both groups stage their bf16 rows in shared memory (``out``, rows padded
+// to N + 8 elements so the fragment writes are free of bank conflicts),
+// then copy them out as 16-byte stores: a tile row is one contiguous span
+// of y. Called by the block's 256 threads; ``out`` holds T_PIX x (N + 8).
+template <int N>
+__device__ __forceinline__ void store_tile(float (&acc)[2][N / 2],
+                                           __nv_bfloat16* out,
+                                           __nv_bfloat16* __restrict__ y,
+                                           int bd, int h0, int w0, int H,
+                                           int W) {
+  constexpr int OS = N + 8;
+  const int t = threadIdx.x % 128, g = threadIdx.x / 128;
+  const int warp = t / 32, lane = t % 32;
+  __nv_bfloat16* rows = out + g * T_W * OS;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 64 * i + 16 * warp + lane / 4 + 8 * half;
+        *reinterpret_cast<__nv_bfloat162*>(&rows[p * OS + 8 * j +
+                                                 2 * (lane % 4)]) =
+            __floats2bfloat162_rn(acc[i][4 * j + 2 * half],
+                                  acc[i][4 * j + 2 * half + 1]);
+      }
+  hopper::bar_sync(2 + g, 128);
+  const int h = h0 + g;
+  if (h >= H) return;
+  const int npix = min(T_W, W - w0);
+  uint4* dst = reinterpret_cast<uint4*>(y + (((size_t)bd * H + h) * W + w0) *
+                                                N);
+  for (int q = t; q < npix * (N / 8); q += 128) {
+    const int p = q / (N / 8), v = q % (N / 8);
+    dst[q] = *reinterpret_cast<const uint4*>(&rows[p * OS + 8 * v]);
+  }
+}
+
+// Wide path. An implicit GEMM per tile of T_H x T_W output pixels: M = 256
+// pixels, N = Cout in one tile, K = 9 taps x Cin in chunks of 16 channels.
+// Stage s of the ring holds chunk c's input patch, (T_H + 2) x (T_W + 2)
+// pixels x 16 channels as [channel half][pixel][8] (two TMA boxes; zeros
+// outside the image, so the padding costs nothing), and its weight slice
+// [tap][channel half][N][8] (one bulk copy of the wrapper's re-laid-out
+// band). Both are K-major wgmma operands without swizzle: tap (kh, kw)'s A
+// is the patch shifted by kh rows and kw pixels, a descriptor 16 bytes per
+// pixel further on. Warpgroups 0 and 1 consume, each m64 x 2 over one
+// output row, releasing a stage once the wgmma that read it has retired
+// (one group kept in flight).
+template <int N>
+struct Wide {
+  static constexpr int PW = T_W + 2;                    // patch columns
+  static constexpr int HALF = (T_H + 2) * PW * 16;      // bytes per half
+  static constexpr int PATCH = 2 * HALF;                // 16,640
+  static constexpr int WCHUNK = 9 * 2 * N * 16;         // weight bytes
+  static constexpr int STAGE = PATCH + WCHUNK;
+  static constexpr int STAGES = N > 96 ? 3 : 4;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(T_PIX * (N + 8) * 2 <= STAGES * STAGE, "epilogue fits");
+  static_assert(SMEM <= 232448, "fits the SM's shared memory");
+};
+
+// Thread 0 also produces: it fills the ring ahead and refills a stage once
+// all eight warps have released it. With a producer warp (288
+// threads) or warpgroup (384, setmaxnreg notwithstanding) ptxas held every
+// thread to 168 registers, too few beside the 144 accumulators of N = 144:
+// they spilled. At 256 threads a thread may hold 255.
+template <int N>
+__device__ __forceinline__ void wide_load(const CUtensorMap* xmap,
+                                          const uint16_t* wk, uint8_t* smem,
+                                          uint64_t* full, int c, int w0,
+                                          int h0, int bd) {
+  using C = Wide<N>;
+  const int s = c % C::STAGES;
+  uint8_t* st = smem + s * C::STAGE;
+  hopper::mbar_expect_tx(&full[s], C::STAGE);
+  for (int half = 0; half < 2; ++half)
+    hopper::tma_load_5d(st + half * C::HALF, xmap, &full[s], 0, 2 * c + half,
+                        w0 - 1, h0 - 1, bd);
+  hopper::bulk_load(st + C::PATCH, wk + (size_t)c * (C::WCHUNK / 2),
+                    C::WCHUNK, &full[s]);
+}
+
+template <int N>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+conv_wide(const __grid_constant__ CUtensorMap xmap,
+          const uint16_t* __restrict__ wk, __nv_bfloat16* __restrict__ y,
+          int H, int W, int chunks, int w_tiles) {
+  using C = Wide<N>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+
+  const int wt = blockIdx.x % w_tiles, bd = blockIdx.x / w_tiles;
+  const int h0 = blockIdx.y * T_H, w0 = wt * T_W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], TILE_THREADS / 32);  // one per warp
+    }
+    hopper::mbar_init_fence();
+    for (int c = 0; c < min(chunks, C::STAGES); ++c)
+      wide_load<N>(&xmap, wk, smem, full, c, w0, h0, bd);
+  }
+  __syncthreads();
+
+  const int g = warp / 4;  // warpgroup: output row h0 + g
+  float acc[2][N / 2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[i][e] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % C::STAGES;
+    hopper::mbar_wait(&full[s], (c / C::STAGES) & 1);
+    const uint32_t xs = hopper::smem_u32(smem + s * C::STAGE);
+    const uint32_t ws = xs + C::PATCH;
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int kh = tap / 3, kw = tap % 3;
+      const uint64_t bdesc = hopper::desc(ws + tap * 2 * N * 16, N * 16, 128);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        hopper::wgmma_ss<N>(
+            acc[i],
+            hopper::desc(xs + ((g + kh) * C::PW + 64 * i + kw) * 16, C::HALF,
+                         128),
+            bdesc);
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    hopper::wgmma_wait<1>();  // chunk c - 1's products have retired
+    if (c > 0) {
+      const int done = c - 1, s_done = done % C::STAGES;
+      if (lane == 0) hopper::mbar_arrive(&empty[s_done]);
+      if (threadIdx.x == 0 && done + C::STAGES < chunks) {
+        hopper::mbar_wait(&empty[s_done], (done / C::STAGES) & 1);
+        wide_load<N>(&xmap, wk, smem, full, done + C::STAGES, w0, h0, bd);
+      }
+      __syncwarp();  // wgmma is warp-aligned: lane 0 rejoins its warp
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc[0]);
+  hopper::fence_regs(acc[1]);
+  // every load was consumed and every product has retired: the ring's
+  // memory is free for the epilogue
+  __syncthreads();
+  store_tile<N>(acc, reinterpret_cast<__nv_bfloat16*>(smem), y, bd, h0, w0,
+                H, W);
+}
+
+// Folded-tap path for Cin = 2, 4 or 6 (the first stage-0 conv: 6): the nine
+// taps fold into K = 9 Cin <= 54, zero-padded to 64, so a tile is four k16
+// steps instead of nine half-empty ones. The folded weight [64, N], as the
+// wrapper lays it out ([k group][N][8], K-major), stays in shared memory for
+// the block's life. The grid is persistent over T_H x T_W tiles; a tile's
+// input rows h0 - 1 .. h0 + T_H and columns w0 - 8 .. w0 + T_W + 7 are one
+// contiguous, 16-byte-aligned span per row (W * Cin % 8 == 0), fetched with
+// 16-byte cp.async (zeros outside the image) into one of two buffers while
+// the other tile computes. A is built in registers straight from those rows
+// (a pair of adjacent k is a pair of channels of one pixel and tap, since
+// Cin is even: one 32-bit load each), then wgmma with B from shared memory.
+// The output (16 bytes written per input byte read at 6 -> 96) goes through
+// the same staged, coalesced epilogue as the wide path.
+constexpr int FOLD_K = 64;
+constexpr int FOLD_RW = T_W + 16;                   // raw row columns
+constexpr int FOLD_RAW = (T_H + 2) * FOLD_RW * 6;   // elements, Cin <= 6
+
+template <int N>
+struct Fold {
+  static constexpr int WBYTES = FOLD_K * N * 2;
+  static constexpr int OUT = T_PIX * (N + 8) * 2;
+  static constexpr int SMEM = WBYTES + OUT + 2 * FOLD_RAW * 2;
+};
+
+template <int N>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+conv_fold(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wf,
+          __nv_bfloat16* __restrict__ y, int BD, int H, int W, int Cin) {
+  using C = Fold<N>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint16_t* ws = reinterpret_cast<uint16_t*>(smem);
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(smem + C::WBYTES);
+  uint16_t* raw = reinterpret_cast<uint16_t*>(smem + C::WBYTES + C::OUT);
+
+  const int t = threadIdx.x % 128, g = threadIdx.x / 128;
+  const int warp = t / 32, lane = t % 32;
+  const int h_tiles = (H + T_H - 1) / T_H, w_tiles = (W + T_W - 1) / T_W;
+  const long long tiles = (long long)BD * h_tiles * w_tiles;
+  const int row_elems = FOLD_RW * Cin;      // a multiple of 8
+  const long long img_row = (long long)W * Cin;
+
+  for (int i = threadIdx.x; i < C::WBYTES / 16; i += TILE_THREADS)
+    reinterpret_cast<uint4*>(ws)[i] = reinterpret_cast<const uint4*>(wf)[i];
+  hopper::fence_async_smem();
+
+  // this lane's k offsets into the raw rows, per k16 step and k half
+  // (k = 16 s + 8 hk + 2 (lane % 4)); -1 past 9 Cin
+  int koff[4][2];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      const int k = 16 * s + 8 * hk + 2 * (lane % 4);
+      const int tap = k / Cin, ci = k % Cin;
+      koff[s][hk] = k < 9 * Cin
+                        ? ((tap / 3) * FOLD_RW + tap % 3 + 7) * Cin + ci
+                        : -1;
+    }
+
+  auto fetch = [&](long long tile, uint16_t* buf) {
+    const int wt = (int)(tile % w_tiles);
+    const long long r = tile / w_tiles;
+    const int h0 = (int)(r % h_tiles) * T_H, bd = (int)(r / h_tiles);
+    const long long c0 = (long long)(wt * T_W - 8) * Cin;  // row element
+    for (int q = threadIdx.x; q < (T_H + 2) * (row_elems / 8);
+         q += TILE_THREADS) {
+      const int rr = q / (row_elems / 8), v = q % (row_elems / 8);
+      const int h = h0 - 1 + rr;
+      const long long e = c0 + 8 * v;
+      const bool ok = h >= 0 && h < H && e >= 0 && e < img_row;
+      const uint16_t* src =
+          ok ? x + ((long long)bd * H + h) * img_row + e : x;
+      hopper::cp_async16(buf + rr * row_elems + 8 * v, src, ok);
+    }
+    hopper::cp_async_commit();
+  };
+
+  long long tile = blockIdx.x;
+  if (tile < tiles) fetch(tile, raw);
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    uint16_t* cur = raw + (it & 1) * FOLD_RAW;
+    const long long next = tile + gridDim.x;
+    if (next < tiles) {
+      fetch(next, raw + ((it + 1) & 1) * FOLD_RAW);
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's rows (and, the first time, ws) are in
+
+    float acc[2][N / 2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[i][e] = 0.f;
+    uint32_t a[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = (g * FOLD_RW + 64 * i + 16 * warp + lane / 4) * Cin;
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // (row + 8 (r % 2), k half r / 2)
+          const int off = koff[s][r / 2];
+          a[i][s][r] = off < 0 ? 0u
+                               : *reinterpret_cast<const uint32_t*>(
+                                     cur + p + 8 * (r % 2) * Cin + off);
+        }
+    }
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t bdesc = hopper::desc(
+          hopper::smem_u32(ws) + 2 * s * N * 16, N * 16, 128);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) hopper::wgmma_rs<N>(acc[i], a[i][s], bdesc);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+
+    const int wt = (int)(tile % w_tiles);
+    const long long r = tile / w_tiles;
+    const int h0 = (int)(r % h_tiles) * T_H, bd = (int)(r / h_tiles);
+    // all reads of ``cur`` and of the last tile's ``out`` are done
+    __syncthreads();
+    store_tile<N>(acc, out, y, bd, h0, wt * T_W, H, W);
   }
 }
 
@@ -659,6 +984,117 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its address
+// is looked up once through the runtime, so the library links against
+// nothing but the CUDA runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                        cudaEnableDefault,
+                                        &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+template <int N>
+cudaError_t launch_wide(const void* x, const void* wk, void* y, int BD, int H,
+                        int W, int Cin, cudaStream_t s) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // x as [BD][H][W][Cin / 8][8]; the box is one 8-channel group of the
+  // (T_H + 2) x (T_W + 2) patch
+  CUtensorMap map;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)Cin / 8, (cuuint64_t)W,
+                              (cuuint64_t)H, (cuuint64_t)BD};
+  const cuuint64_t strides[4] = {16, (cuuint64_t)Cin * 2,
+                                 (cuuint64_t)W * Cin * 2,
+                                 (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t box[5] = {8, 1, Wide<N>::PW, T_H + 2, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_wide<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Wide<N>::SMEM);
+  if (err != cudaSuccess) return err;
+  const int w_tiles = (W + T_W - 1) / T_W;
+  const dim3 grid((unsigned)BD * w_tiles, (H + T_H - 1) / T_H);
+  conv_wide<N><<<grid, TILE_THREADS, Wide<N>::SMEM, s>>>(
+      map, static_cast<const uint16_t*>(wk), static_cast<__nv_bfloat16*>(y),
+      H, W, (Cin + 15) / 16, w_tiles);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_fold(const void* x, const void* wf, void* y, int BD, int H,
+                        int W, int Cin, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_fold<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Fold<N>::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, conv_fold<N>, TILE_THREADS, Fold<N>::SMEM)) != cudaSuccess)
+    return err;
+  const long long tiles = (long long)BD * ((H + T_H - 1) / T_H) *
+                          ((W + T_W - 1) / T_W);
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  conv_fold<N><<<(unsigned)(tiles < most ? tiles : most), TILE_THREADS,
+                 Fold<N>::SMEM, s>>>(static_cast<const uint16_t*>(x),
+                                     static_cast<const uint16_t*>(wf),
+                                     static_cast<__nv_bfloat16*>(y), BD, H, W,
+                                     Cin);
+  return cudaGetLastError();
+}
+
+// The three output widths the wgmma paths are built for.
+#define DISPATCH_COUT(COUT, CALL) \
+  switch (COUT) {                 \
+    case 64: {                    \
+      constexpr int N = 64;       \
+      return (int)CALL;           \
+    }                             \
+    case 96: {                    \
+      constexpr int N = 96;       \
+      return (int)CALL;           \
+    }                             \
+    case 144: {                   \
+      constexpr int N = 144;      \
+      return (int)CALL;           \
+    }                             \
+    default:                      \
+      return (int)cudaErrorInvalidValue; \
+  }
+
+template <typename Kernel>
+int attrs(Kernel kernel, int dynamic, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = dynamic;
+  return (int)err;
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Every pointer is a device pointer to
@@ -676,6 +1112,42 @@ extern "C" int packed_conv_fwd_bf16(const void* x, const void* w, void* y,
       static_cast<__nv_bfloat16*>(y), H, W, Cin, Cout, w_tiles, n_tiles,
       Cin % 8 == 0 && aligned16(x), Cout % 8 == 0 && aligned16(w));
   return (int)cudaGetLastError();
+}
+
+// Wide path: x bf16 [BD, H, W, Cin] with Cin % 8 == 0, 16-byte aligned; wk
+// the band re-laid out by the wrapper as [ceil(Cin / 16)][9][2][Cout][8]
+// (zero past Cin); Cout 64, 96 or 144.
+extern "C" int packed_conv_fwd_wide(const void* x, const void* wk, void* y,
+                                    int BD, int H, int W, int Cin, int Cout,
+                                    void* stream) {
+  if (Cin % 8 != 0 || !aligned16(x) || !aligned16(wk) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  DISPATCH_COUT(Cout, launch_wide<N>(x, wk, y, BD, H, W, Cin,
+                                     (cudaStream_t)stream))
+}
+
+// Folded-tap path: x bf16 [BD, H, W, Cin] with Cin 2, 4 or 6, W * Cin % 8 ==
+// 0, 16-byte aligned; wf the folded band [64 / 8][Cout][8] (K = tap * Cin +
+// ci, zero past 9 Cin); Cout 64, 96 or 144.
+extern "C" int packed_conv_fwd_fold(const void* x, const void* wf, void* y,
+                                    int BD, int H, int W, int Cin, int Cout,
+                                    void* stream) {
+  if (Cin < 2 || Cin > 6 || Cin % 2 != 0 || (long long)W * Cin % 8 != 0 ||
+      !aligned16(x) || !aligned16(wf) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  DISPATCH_COUT(Cout, launch_fold<N>(x, wf, y, BD, H, W, Cin,
+                                     (cudaStream_t)stream))
+}
+
+// Registers, static shared memory, local (spill) bytes and dynamic shared
+// memory of one forward kernel: ``which`` 0 = conv_mma (generic), 1 =
+// conv_wide<cout>, 2 = conv_fold<cout>. Writes 4 ints to ``out``.
+extern "C" int packed_conv_kernel_attrs(int which, int cout, int* out) {
+  if (which == 0) return attrs(conv_mma, 0, out);
+  if (which == 1) {
+    DISPATCH_COUT(cout, attrs(conv_wide<N>, Wide<N>::SMEM, out))
+  }
+  DISPATCH_COUT(cout, attrs(conv_fold<N>, Fold<N>::SMEM, out))
 }
 
 extern "C" int packed_conv_fwd_f32(const void* x, const void* w, void* y,

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at
 first use into ``build/transoar_tpu_torch/<name>-<hash>.so`` at the root of
-the checkout, keyed by a hash of the source and the compiler flags, so an
-edited source rebuilds and an unchanged one loads in milliseconds. Nothing
+the checkout, keyed by a hash of the source, the shared headers and the
+compiler flags, so an edited source rebuilds and an unchanged one loads in milliseconds. Nothing
 is compiled when a module is imported.
 """
 
@@ -37,8 +37,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The build of ``csrc/<name>.cu``, keyed by the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

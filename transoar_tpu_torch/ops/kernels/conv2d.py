@@ -7,8 +7,9 @@ and w ``[3, 3, C, F]`` (cast to x's dtype, as the TPU side does) give
 ``[N, H, W, F]`` in x's dtype, with f32 accumulation and zero padding 1. It
 is the same function as the forward of ``packed_conv`` (whose rows are
 flattened depth-packed slices), so on a CUDA tensor it launches that
-kernel (``csrc/packed_conv.cu``: bf16 on the tensor cores, f32 on the CUDA
-cores) or raises; on a CPU tensor it runs its plain version
+kernel (``csrc/packed_conv.cu``: bf16 on the tensor cores, the wide wgmma
+variant where C % 8 == 0 and F is 64, 96 or 144, as at 64 -> 64; f32 on
+the CUDA cores) or raises; on a CPU tensor it runs its plain version
 ``conv2d_3x3_reference``. Forward only, as on the TPU; its own launch count
 is ``conv2d_3x3.launches``. No model path calls it.
 """

@@ -18,12 +18,21 @@ call goes through ``_PackedConv``, whose backward mirrors
 
 Each of the three, on a CUDA tensor, launches its hand-written kernel in
 ``csrc/packed_conv.cu`` (built with nvcc for sm_90a at first use) or raises;
-it never falls back. On a CPU tensor it runs its plain PyTorch version
+it never falls back. The forward (and so dx) has three bf16 kernels for
+one function, chosen by shape in ``_variant``: ``wide`` (Cin % 8 == 0, on
+wgmma with an asynchronous copy ring), ``fold`` (Cin 2, 4 or 6: the nine
+taps folded into K = 64) and ``generic`` (the mma.sync kernel, for every
+other shape); f32 runs ``fma``. A launch that fails raises; nothing retries
+on another variant. The wide and fold kernels take the band re-laid out
+here (``_wide_weight``, ``_fold_weight``). On a CPU tensor each wrapper
+runs its plain PyTorch version
 (``packed_conv_reference``, ``packed_conv_dx_reference``,
 ``packed_conv_dw_reference``), which the CPU tests and the on-card checks
 compare against; the CPU also takes f64, for ``gradcheck``. Each wrapper
 counts its own launches (``packed_conv.launches``,
-``packed_conv_dx.launches``, ``packed_conv_dw.launches``).
+``packed_conv_dx.launches``, ``packed_conv_dw.launches``); the forward
+kernel also counts its launches per variant in ``variant_launches``,
+whichever wrapper called it.
 """
 
 from __future__ import annotations
@@ -37,6 +46,14 @@ import torch.nn.functional as F
 from transoar_tpu_torch.ops.kernels._build import load_library
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# the forward kernels by variant, and the output widths the wgmma paths are
+# built for (a template each in csrc/packed_conv.cu)
+_FWD_SYMBOL = {"wide": "packed_conv_fwd_wide", "fold": "packed_conv_fwd_fold",
+               "generic": "packed_conv_fwd_bf16", "fma": "packed_conv_fwd_f32"}
+WGMMA_COUT = (64, 96, 144)
+FOLD_CIN = (2, 4, 6)
+FOLD_K = 64
+variant_launches = dict.fromkeys(_FWD_SYMBOL, 0)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -75,18 +92,74 @@ def packed_conv_dw_reference(xh: torch.Tensor,
         for kw in range(3)]) for kh in range(3)])
 
 
+def _variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The forward kernel for x [BD, H, W, Cin] and w [3, 3, Cin, Cout]:
+    "wide" (bf16, Cin % 8 == 0), "fold" (bf16, Cin 2, 4 or 6 and
+    W * Cin % 8 == 0, so that every input row is 16-byte aligned), both for
+    Cout 64, 96 or 144 and a 16-byte aligned x; "generic" for every other
+    bf16 shape; "fma" for f32."""
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    cin, cout = x.shape[-1], w.shape[-1]
+    if cout not in WGMMA_COUT or x.data_ptr() % 16:
+        return "generic"
+    if cin % 8 == 0:
+        return "wide"
+    if cin in FOLD_CIN and x.shape[2] * cin % 8 == 0:
+        return "fold"
+    return "generic"
+
+
+def _wide_weight(w: torch.Tensor) -> torch.Tensor:
+    """The band [3, 3, Cin, Cout] as the wide kernel streams it:
+    [ceil(Cin / 16), 9, 2, Cout, 8] = per 16-channel chunk, per tap, the two
+    8-channel halves K-major (channel 16 c + 8 h + j at [c, tap, h, :, j]),
+    zero past Cin. One chunk is one contiguous bulk copy."""
+    _, _, cin, cout = w.shape
+    chunks = -(-cin // 16)
+    wpad = F.pad(w.reshape(9, cin, cout), (0, 0, 0, 16 * chunks - cin))
+    return (wpad.reshape(9, chunks, 2, 8, cout).permute(1, 0, 2, 4, 3)
+            .contiguous())
+
+
+def _fold_weight(w: torch.Tensor) -> torch.Tensor:
+    """The band [3, 3, Cin, Cout] folded for the fold kernel: the [64, Cout]
+    matrix of K = tap * Cin + ci (zero rows past 9 Cin), laid out K-major
+    as [8, Cout, 8] (row 8 g + j at [g, :, j])."""
+    _, _, cin, cout = w.shape
+    w64 = F.pad(w.reshape(9 * cin, cout), (0, 0, 0, FOLD_K - 9 * cin))
+    return w64.reshape(FOLD_K // 8, 8, cout).transpose(1, 2).contiguous()
+
+
+_RELAYOUT = {"wide": _wide_weight, "fold": _fold_weight}
+
+
 @functools.cache
-def _kernel(kind: str, dtype: torch.dtype):
-    fn = getattr(load_library("packed_conv"),
-                 f"packed_conv_{kind}_{_SUFFIX[dtype]}")
-    if kind == "fwd":   # x, w, y, BD, H, W, Cin, Cout, stream
+def _kernel(symbol: str):
+    fn = getattr(load_library("packed_conv"), symbol)
+    if symbol.startswith("packed_conv_fwd"):
+        # x, w, y, BD, H, W, Cin, Cout, stream
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
-    else:               # x, dy, part, dw, BD, H, W, Cin, Cout, splits, stream
+    else:  # x, dy, part, dw, BD, H, W, Cin, Cout, splits, stream
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_attrs(variant: str, cout: int) -> dict:
+    """Registers, static and dynamic shared memory and local (spill) bytes
+    per thread of the bf16 forward kernel ``variant`` at ``cout`` (wide and
+    fold are one template instance per Cout)."""
+    fn = load_library("packed_conv").packed_conv_kernel_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _raise_on(fn(("generic", "wide", "fold").index(variant), cout, out),
+              f"packed_conv_kernel_attrs({variant}, {cout})")
+    return dict(zip(("registers", "static_smem", "local_bytes",
+                     "dynamic_smem"), out))
 
 
 @functools.cache
@@ -123,8 +196,12 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _launch_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on contiguous CUDA tensors (no count)."""
+def _launch_conv(x: torch.Tensor, w: torch.Tensor,
+                 variant: str | None = None) -> torch.Tensor:
+    """The forward kernel on contiguous CUDA tensors: the one ``_variant``
+    picks, or ``variant`` where it is "generic", which takes every bf16
+    shape (the on-card timing of the wgmma kernels against it). Counts the
+    launch in ``variant_launches``, not in any wrapper's count."""
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("packed_conv wants contiguous operands")
     BD, H, W, Cin = x.shape
@@ -132,10 +209,19 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((BD, H, W, Cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    picked = _variant(x, w)
+    if variant is not None and variant != picked and not (
+            variant == "generic" and picked != "fma"):
+        raise ValueError(f"packed_conv: the {variant} kernel does not take "
+                         f"x {tuple(x.shape)} {x.dtype} and Cout {Cout}")
+    variant = variant or picked
+    wk = _RELAYOUT[variant](w) if variant in _RELAYOUT else w
     with torch.cuda.device(x.device):
-        _raise_on(_kernel("fwd", x.dtype)(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), BD, H, W, Cin, Cout,
-            torch.cuda.current_stream().cuda_stream), "packed_conv")
+        _raise_on(_kernel(_FWD_SYMBOL[variant])(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), BD, H, W, Cin, Cout,
+            torch.cuda.current_stream().cuda_stream),
+            f"packed_conv ({variant})")
+    variant_launches[variant] += 1
     return y
 
 
@@ -213,7 +299,7 @@ def packed_conv_dw(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         splits = _dw_splits()(BD, H, W, Cin, Cout, int(bf16))
         part = torch.empty((splits, 3, 3, Cin, Cout), dtype=torch.float32,
                            device=xh.device)
-        _raise_on(_kernel("dw", xh.dtype)(
+        _raise_on(_kernel(f"packed_conv_dw_{_SUFFIX[xh.dtype]}")(
             xh.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
             BD, H, W, Cin, Cout, splits,
             torch.cuda.current_stream().cuda_stream), "packed_conv_dw")
