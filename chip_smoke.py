@@ -8,7 +8,7 @@ each printing a line; any failure exits non-zero before the result lines:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from csrc/, one nvcc per source, all
    started together; the registers, shared memory and spill bytes of each
-   bf16 forward kernel of the band conv (generic, wide and fold);
+   bf16 forward and dw kernel of the band conv (generic, wide and fold);
 3. forward kernel vs plain: packed_conv against packed_conv_reference at
    the stage-0 shapes of the four paths (foc_dec_amos and
    swin_fpn_visceral, serving batch 1 and training batch 2) and a ragged
@@ -22,7 +22,8 @@ each printing a line; any failure exits non-zero before the result lines:
    1e-4 against the f32 plain version of the same bf16 inputs, and
    bit-identical when run twice) at both models' training shapes and a
    ragged shape, timed as phase 3 (cuDNN's conv2d_input / conv2d_weight for
-   scale; dx beside the generic kernel too);
+   scale; each beside its generic kernel, the mma.sync kernel which the
+   wgmma kernels replaced, with its variant, TFLOP/s and bound / ms);
 5. window attention kernels vs plain: fused_window_attention and its
    backward at each of swin_fpn_visceral's four Swin stages at batch 2
    (N = 125, d = 16; q, k, v as views of the qkv projection), shifted and
@@ -33,7 +34,7 @@ each printing a line; any failure exits non-zero before the result lines:
    (``scaled_dot_product_attention`` with the bias + mask as
    ``attn_mask``) for scale: its forward beside the forward, its backward
    alone (on a retained graph) beside the backward, and forward +
-   backward of both;
+   backward of both; each timed row with its TFLOP/s and bound / ms;
 6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain,
    the generic kernel and cuDNN on one shape;
 7. small models, CPU vs card: tiny f32 flagship-shaped and Swin-shaped
@@ -72,8 +73,9 @@ each printing a line; any failure exits non-zero before the result lines:
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; phases 9-12 also require every launch of the band conv's
-forward kernel (forward and dx) to have taken the wide or the fold
-variant, never the generic one. Then one JSON line of per-kernel results
+forward kernel (forward and dx), and phases 10 and 12 every launch of its
+dw kernel, to have taken the wide or the fold variant, never the generic
+one. Then one JSON line of per-kernel results
 and, last, the device line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
@@ -157,26 +159,35 @@ def _counts():
 def _reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
-    variants = _kernels().variant_launches
-    for v in variants:
-        variants[v] = 0
+    pc = _kernels()
+    for variants in (pc.variant_launches, pc.dw_variant_launches):
+        for v in variants:
+            variants[v] = 0
 
 
-# the band conv's forward kernel launches by variant, per main path
-VARIANTS_BY_PATH = {}
+# the band conv's forward and dw kernel launches by variant, per main path
+VARIANTS_BY_PATH, DW_VARIANTS_BY_PATH = {}, {}
 
 
 def _check_variants(path, counts):
     """The band conv's forward kernel ran as fold for each first conv (Cin
-    = 6) and as wide for each second conv and each dx, and never as the
-    generic kernel; keeps the counts in VARIANTS_BY_PATH."""
-    got = {k: v for k, v in _kernels().variant_launches.items() if v}
-    n = counts["packed_conv"] // 2
-    want = {k: v for k, v in (("fold", n),
-                              ("wide", n + counts["packed_conv_dx"])) if v}
-    if got != want:
-        fail(f"{path}: band conv kernel variants {got}, want {want}")
-    VARIANTS_BY_PATH[path] = got
+    = 6) and as wide for each second conv and each dx, its dw kernel as
+    fold for each first conv's dw and as wide for each second's, and never
+    as the generic kernel; keeps the counts in (DW_)VARIANTS_BY_PATH."""
+    pc = _kernels()
+    for table, launched, by_path, extra in (
+            ("forward", counts["packed_conv"], VARIANTS_BY_PATH,
+             counts["packed_conv_dx"]),
+            ("dw", counts["packed_conv_dw"], DW_VARIANTS_BY_PATH, 0)):
+        variants = (pc.variant_launches if table == "forward"
+                    else pc.dw_variant_launches)
+        got = {k: v for k, v in variants.items() if v}
+        n = launched // 2
+        want = {k: v for k, v in (("fold", n), ("wide", n + extra)) if v}
+        if got != want:
+            fail(f"{path}: band conv {table} kernel variants {got}, "
+                 f"want {want}")
+        by_path[path] = got
 
 
 def phase_device():
@@ -205,11 +216,13 @@ def phase_build():
         print(f"build: {name}.cu " + " | ".join(ptxas), flush=True)
     print(f"build: {len(names)} sources in {secs:.2f} s", flush=True)
     pc = _kernels()
-    attrs = {f"{v}<{c}>": pc.kernel_attrs(v, c)
-             for v, c in (("generic", 96), ("wide", 64), ("wide", 96),
-                          ("wide", 144), ("fold", 96))}
-    print(f"build: band conv forward kernels (registers, shared memory, "
-          f"spill bytes per thread) {json.dumps(attrs)}", flush=True)
+    cases = (("generic", 96), ("wide", 64), ("wide", 96), ("wide", 144),
+             ("fold", 96))
+    for dw in (False, True):
+        attrs = {f"{v}<{c}>": pc.kernel_attrs(v, c, dw=dw) for v, c in cases}
+        print(f"build: band conv {'dw' if dw else 'forward'} kernels "
+              f"(registers, shared memory, spill bytes per thread; the wide "
+              f"dw kernel's ring at Cin 144) {json.dumps(attrs)}", flush=True)
 
 
 def _median_ms(fn, runs=20, warmup=3):
@@ -241,13 +254,18 @@ def _conv_work(shape, cin, cout):
     return 2 * pixels * 9 * cin * cout, pixels
 
 
+def _rates(row, flops):
+    """Adds the achieved TFLOP/s and bound / ms to a timed ``row``."""
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+
+
 def _timed_conv(row, flops, ours, generic):
     """Adds the kernel's and the generic kernel's median ms, the achieved
     TFLOP/s and bound / ms to ``row``."""
     row["ms"] = _median_ms(ours)
     row["generic_ms"] = _median_ms(generic)
-    row["tflops"] = flops / row["ms"] / 1e9
-    row["bound_share"] = row["bound_ms"] / row["ms"]
+    _rates(row, flops)
 
 
 def _same_bits(name, fn, first):
@@ -365,7 +383,8 @@ def phase_backward():
             fail(f"packed_conv_dw at {shape}x{cout}: rel-L2 {rel:.2e}")
         if not torch.equal(dw, again):
             fail(f"packed_conv_dw at {shape}x{cout} is not deterministic")
-        row = {"shape": list(shape), "cout": cout, "rel_l2": rel,
+        row = {"shape": list(shape), "cout": cout,
+               "variant": pc._dw_variant(xh, dy), "rel_l2": rel,
                "max_abs_err": (dw - ref).abs().max().item(),
                "bit_identical_rerun": True}
         del dw, again, ref
@@ -374,7 +393,8 @@ def phase_backward():
                 flops, 2 * pixels * (cin + cout) + 4 * 9 * cin * cout)
             x_nchw = xh.permute(0, 3, 1, 2)
             dy_nchw = dy.permute(0, 3, 1, 2)
-            row["ms"] = _median_ms(lambda: pc.packed_conv_dw(xh, dy))
+            _timed_conv(row, flops, lambda: pc.packed_conv_dw(xh, dy),
+                        lambda: pc._launch_dw(xh, dy, "generic"))
             row["plain_ms"] = _median_ms(
                 lambda: pc.packed_conv_dw_reference(xh, dy))
             row["library_ms"] = _median_ms(
@@ -491,10 +511,11 @@ def phase_window_kernels():
                 wa.fused_window_attention_bwd(q, k, v, bias, region, do)
 
             row = dict(base, max_abs_err=fwd_err)
-            row["bound_ms"], row["bound_by"] = _bound(
-                *_window_work(B, H, N, d, region.shape[0], False))
+            work = _window_work(B, H, N, d, region.shape[0], False)
+            row["bound_ms"], row["bound_by"] = _bound(*work)
             row["ms"] = _median_ms(
                 lambda: wa.fused_window_attention(q, k, v, bias, region))
+            _rates(row, work[0])
             row["plain_ms"] = _median_ms(
                 lambda: wa.window_attention_reference(q, k, v, bias, region))
             row["library_ms"] = _median_ms(
@@ -505,10 +526,11 @@ def phase_window_kernels():
                   flush=True)
             row = dict(base, max_abs_err=bwd_err, dbias_rel_l2=rel,
                        dbias_bit_identical_rerun=True)
-            row["bound_ms"], row["bound_by"] = _bound(
-                *_window_work(B, H, N, d, region.shape[0], True))
+            work = _window_work(B, H, N, d, region.shape[0], True)
+            row["bound_ms"], row["bound_by"] = _bound(*work)
             row["ms"] = _median_ms(lambda: wa.fused_window_attention_bwd(
                 q, k, v, bias, region, do))
+            _rates(row, work[0])
             row["plain_ms"] = _median_ms(
                 lambda: wa.window_attention_bwd_reference(
                     q, k, v, bias, region, do))
@@ -985,8 +1007,9 @@ def main():
         entry["launches_by_path"] = {p: c[entry["name"]]
                                      for p, c in paths.items()}
     # one kernel function under packed_conv and packed_conv_dx (and
-    # conv2d_3x3): its launches on each path by variant
+    # conv2d_3x3): its launches on each path by variant; the same for dw
     kernels[0]["forward_kernel_variants_by_path"] = VARIANTS_BY_PATH
+    kernels[2]["dw_kernel_variants_by_path"] = DW_VARIANTS_BY_PATH
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

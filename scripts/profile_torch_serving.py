@@ -20,7 +20,9 @@ augmentation off, two synthetic cases):
   over a step's completed calls; in training an encoder stage's remat
   recompute stops early and is not among them);
 - kernel time by name from ``torch.profiler`` (device busy time, idle
-  share = 1 - busy / wall) and, with ``--trace``, a chrome trace.
+  share = 1 - busy / wall): the 15 largest, and every one of the port's
+  own kernels (csrc/) with its ms and launches per forward / step; with
+  ``--trace``, a chrome trace.
 
 Needs one CUDA card; imports no jax.
 """
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +54,9 @@ from transoar_tpu_torch.training.trainer import make_train_step  # noqa: E402
 from transoar_tpu_torch.utils.weights import random_state_dict  # noqa: E402
 
 
+# the kernels of csrc/packed_conv.cu and csrc/window_attention.cu, by name
+PORT_KERNEL = re.compile(r"::((?:(?:conv|dw)_(?:wide|fold|mma|fma)|dw_reduce"
+                         r"|(?:fwd|bwd)_(?:mma|fma)|dbias_reduce)(?:<\d+>)?)\(")
 CONFIGS = {"foc_dec_amos": flagship_config,
            "swin_fpn_visceral": swin_fpn_config}
 
@@ -177,6 +183,7 @@ def main():
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     wall = statistics.median(walls)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    ours = [e for e in kernels if PORT_KERNEL.search(e.key)]
     unit = "step" if args.train else "forward"
     print(json.dumps({
         "device": smi,
@@ -191,6 +198,10 @@ def main():
         f"top_kernels_ms_per_{unit}": [
             [e.key[:90], e.self_device_time_total / 1e3 / args.steps,
              e.count // args.steps] for e in top],
+        f"port_kernels_ms_per_{unit}": {
+            PORT_KERNEL.search(e.key).group(1): [
+                e.self_device_time_total / 1e3 / args.steps,
+                e.count // args.steps] for e in ours},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }, indent=1))
 

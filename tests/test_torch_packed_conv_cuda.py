@@ -8,7 +8,8 @@ This file imports no jax, so it runs on a machine with a card and no JAX:
 Every test carries the ``cuda`` marker (registered in pytest.ini) and,
 without a CUDA device, skips (decided inside the fixture).
 The bf16 forward kernel has three variants chosen by shape (wide, fold,
-generic); each case names the one it must take and checks its count.
+generic), and so has the bf16 dw (wide, fold, generic); each case names
+the one it must take and checks its count.
 Tolerance: the kernel and the plain version both accumulate in f32; in f32
 they differ only by summation order (1e-4), in bf16 by one rounding of the
 output (rtol 1.6e-2, atol 1e-2: two bf16 ulps). dw is f32 whatever its
@@ -211,3 +212,72 @@ def test_generic_kernel_on_request(cuda):
     x, w, _ = _operands(cuda, (2, 4, 18, 6), 96, torch.bfloat16)
     with pytest.raises(ValueError, match="fold kernel does not take"):
         pc._launch_conv(x, w, "fold")
+
+
+def _dw_counted(want, x, dy, variant=None):
+    """dw of (x, dy) through the wrapper (or ``_launch_dw`` forcing
+    ``variant``), checking that it launched the dw kernel ``want`` once;
+    the result twice must be the same bits."""
+    run = ((lambda: pc._launch_dw(x, dy, variant)) if variant
+           else (lambda: packed_conv_dw(x, dy)))
+    before = dict(pc.dw_variant_launches)
+    ours = run()
+    torch.cuda.synchronize()
+    after = pc.dw_variant_launches
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {want: 1}
+    assert torch.equal(run(), ours)  # split partials, no atomics
+    return ours
+
+
+@pytest.mark.parametrize("shape,cout,variant", [
+    ((1, 9, 130, 144), 96, "wide"),   # odd H; W not a multiple of 16
+    ((2, 8, 256, 16), 64, "wide"),    # one slab of 48 rows
+    ((2, 7, 100, 96), 144, "wide"),   # Cout 144: two slabs per warpgroup
+    ((2, 5, 37, 208), 64, "wide"),    # 3 Cin = 624: 10 slabs, 2 groups
+    ((2, 6, 20, 6), 96, "fold"),
+    ((1, 5, 132, 4), 64, "fold"),     # a tail past 128 columns
+    ((1, 3, 8, 2), 144, "fold"),
+    ((3, 13, 70, 10), 40, "generic"),  # the ragged shape
+    ((1, 5, 33, 24), 96, "generic"),  # Cin % 16 != 0
+])
+def test_dw_variants_match_plain(cuda, shape, cout, variant):
+    x, _, dy = _operands(cuda, shape, cout, torch.bfloat16, seed=9)
+    assert pc._dw_variant(x, dy) == variant
+    ours = _dw_counted(variant, x, dy)
+    ref = packed_conv_dw_reference(x, dy)
+    rel = (ours - ref).norm() / ref.norm()
+    assert ours.dtype == torch.float32 and rel < 1e-5, rel
+
+
+def test_dw_generic_kernel_on_request(cuda):
+    """The generic dw kernel takes the wide and fold shapes too
+    (chip_smoke.py times it against them); the fold kernel refuses the
+    others."""
+    for shape in ((1, 9, 130, 144), (2, 6, 20, 6)):
+        x, _, dy = _operands(cuda, shape, 96, torch.bfloat16, seed=10)
+        ours = _dw_counted("generic", x, dy, "generic")
+        ref = packed_conv_dw_reference(x, dy)
+        assert (ours - ref).norm() / ref.norm() < 1e-5
+    x, _, dy = _operands(cuda, (2, 4, 18, 6), 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="fold kernel does not take"):
+        pc._launch_dw(x, dy, "fold")
+
+
+@pytest.mark.parametrize("swa,swb,rs", [
+    (0, 0, False), (0, 0, True),      # no swizzle
+    (32, 64, False), (32, 32, False),  # dw_wide: x in 32-byte, dy 64 / 32
+    (0, 64, True), (0, 32, True),     # dw_fold: A in registers
+])
+def test_mn_major_wgmma_tile(cuda, swa, swb, rs):
+    """One m64n96k16 wgmma of MN-major operands (the transposed forms the
+    dw kernels use) against a CPU product; the descriptor with its two
+    offsets exchanged must not pass, so the convention is pinned."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randn((16, 64), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((16, 96), generator=gen, device=cuda).bfloat16()
+    want = a.float().cpu().T @ b.float().cpu()
+    got = pc._debug_wgmma_mn(a, b, swa, swb, rs=rs)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    swapped = pc._debug_wgmma_mn(a, b, swa, swb, swap=True, rs=rs)
+    assert (swapped.cpu() - want).abs().max() > 1.0

@@ -1,7 +1,8 @@
 // Depth-packed stage-0 band conv, forward and weight gradient, for Hopper
 // (sm_90a). The input gradient is the forward kernel run on dy with the
 // flipped, transposed band (ops/kernels/packed_conv.py:packed_conv_dx); the
-// weight gradient is further down (``dw_mma`` / ``dw_fma``).
+// weight gradient is further down (``dw_wide`` / ``dw_fold`` / ``dw_mma`` /
+// ``dw_fma``).
 //
 // Replaces: transoar_tpu/ops/pallas/packed_conv.py::_conv_rows (the Pallas
 // TPU kernel behind ``packed_conv``). It computes the same function: a 3x3
@@ -686,11 +687,14 @@ conv_fma(const float* __restrict__ x, const float* __restrict__ w,
 // Design: an implicit GEMM per tap with M = Cin, N = Cout, K = pixels. The
 // TPU kernel summed every grid step into one VMEM block (its grid runs in
 // order); blocks here run in parallel and in no order, so the sum is split:
-// block (ci chunk, n tile, split) sums a contiguous range of pixel tiles
-// into f32 registers and writes its partial [9, 16, 96] slice of
-// ``part[split]``; ``dw_reduce`` then adds the partials in split order. No
-// atomics: the result is the same bits on every run.
-// - bf16 (``dw_mma``): a pixel tile is TH x TW = 2 x 64 output pixels of one
+// each block sums a contiguous range of pixel tiles into f32 registers and
+// writes its partial slice of ``part[split]``; ``dw_reduce`` then adds the
+// partials in split order. No atomics: the result is the same bits on every
+// run. Four kernels, chosen by shape in the wrapper
+// (ops/kernels/packed_conv.py:_dw_variant): the wgmma kernels ``dw_wide``
+// (Cin % 16 == 0) and ``dw_fold`` (Cin 2, 4 or 6), further down, take the
+// main path's shapes; ``dw_mma`` every other bf16 shape; ``dw_fma`` f32.
+// - bf16 generic (``dw_mma``): block (ci chunk, n tile, split); a pixel tile is TH x TW = 2 x 64 output pixels of one
 //   row bd. The block stages the (TH + 2) x (TW + 2) x 16 input patch (zeros
 //   outside the image and past Cin) and the TH x TW x 96 dy tile in shared
 //   memory, as the forward stages its patch. Tap (kh, kw)'s A operand
@@ -951,6 +955,425 @@ dw_fma(const float* __restrict__ x, const float* __restrict__ dy,
     pb[((size_t)tap * Cin + c0 + ci) * Cout + n0 + co] = acc[tap];
 }
 
+// ---------------------------------------------------------------------------
+// dw on wgmma: the wide path (Cin % 16 == 0) and the folded-tap path (Cin 2,
+// 4 or 6), one template over N = Cout each
+// ---------------------------------------------------------------------------
+//
+// Both are implicit GEMMs with K = pixels, fed by a TMA ring that thread 0
+// keeps filled (as conv_wide), with dy, and in dw_wide x too, MN-major:
+// TMA lands a run of channels of each pixel as one row of a swizzled block
+// ([channel group][pixel][E channels], 8 pixels x 2E bytes a block), which
+// wgmma reads with its transpose immediates. Groups of E = 16 (32-byte
+// swizzle) make each TMA request one whole 32-byte sector, where 8-channel
+// groups without swizzle read half sectors (slower on the card); dy, where
+// Cout % 32 == 0, goes in groups of 32 (64-byte swizzle). (x in 64-channel
+// groups, 128-byte swizzle, plus a 16-channel rest was slower again on the
+// card: its descriptors had to be chosen per slab at run time.) The
+// partials stay as dw_mma's: one f32 slice of
+// ``part`` per block (or warpgroup), added by dw_reduce in split order, no
+// atomics. wgmma's f32 sums lose precision over very long runs (rel-L2
+// 1.1e-4 after 95K pixels at Cin = 144), so a block adds its accumulators
+// into its slice of ``part`` every DW_FLUSH tiles.
+//
+// dw_wide<N>: x^T dy with the three kh taps folded into M. A stage holds
+// one tile of DWW_TH x DWW_TW dy pixels, its dy [row][co group][16][E], and
+// the x rows h0 - 1 .. h0 + DWW_TH at columns w0 + kw - 1 .. as
+// [row][ci group][16][16] (TMA boxes from 5-D views ordered (group width,
+// W, groups, H, BD); zeros outside the image). A row is G = Cin / 16
+// groups further on, so M row m = kh Cin + ci of dy row r sits in block
+// r G + m / 16: one descriptor with a uniform block stride covers (kh, ci)
+// across the row boundary, and 3 Cin rows take ceil(3 Cin / 64) m64 slabs
+// (432 of 448 rows used at Cin = 144, against 432 of 576 for 64-channel
+// slabs per tap). A block owns one kw (its x box starts kw - 1 columns
+// over) and up to 2 S slabs, S per warpgroup with S m64 x N accumulators
+// (S = 4 at N <= 96: 192 registers); each dy row of the tile is one k16
+// step against every slab. The grid is splits x 3 kw x slab groups, one
+// wave over the SMs; a split is a contiguous range of tiles, so its three
+// kw blocks walk the same pixels together and read x and dy through L2.
+// ptxas serializes the whole wgmma chain (C7518 / C7520) when code on a
+// branch touches the accumulators or issues a wgmma; so every slot issues
+// its product, a run's first products overwrite the accumulators (scale-d
+// 0) instead of zeroing them, and only the flush, after the last wait,
+// reads them (a quarter less time than the serialized build at the
+// flagship shape on an H100; 254 registers at N = 96, no spills).
+//
+// dw_fold<N>: the nine taps fold into M = 9 Cin <= 54 (one m64 slab, 84%
+// of its rows used at Cin = 6), N = Cout, K = pixels. A persistent grid, a
+// contiguous range of DWF2_TH x DWF2_TW tiles per block; warpgroup g takes
+// output row g of each tile and keeps its own partial. A stage holds the dy
+// tile ([row][co group][128][E], TMA) and the raw x rows h0 - 1 .. h0 +
+// DWF2_TH, columns w0 - 8 .. w0 + DWF2_TW + 7 (one TMA box of 16-byte runs
+// of the row-major [BD * H][W * Cin] view; zeros outside). A is built in
+// registers: a register pair is two adjacent pixels of one (tap, ci), two
+// 2-byte loads each (wgmma RS); B is the dy tile by descriptor. It is
+// bound by dy's bytes: each dy byte is read once.
+
+constexpr int DWW_TH = 8;    // dy rows per tile
+constexpr int DWW_TW = 16;   // dy columns per tile: one k16 step per row
+constexpr int DW_FLUSH = 128;             // tiles between partial flushes
+constexpr int DW_SMEM_MAX = 232448;
+constexpr int DW_ALIGN = 1024;            // stage alignment (swizzle, TMA)
+
+// dy's channels per swizzled group: 32 (64-byte swizzle) or 16 (32-byte)
+__host__ __device__ constexpr int dw_dy_group(int cout) {
+  return cout % 32 == 0 ? 32 : 16;
+}
+
+__host__ __device__ constexpr int dww_x_bytes(int cin) {
+  return (DWW_TH + 2) * DWW_TW * cin * 2;  // a multiple of 1024 (Cin % 16)
+}
+
+// m64 slabs of the folded M, 3 Cin rows
+__host__ __device__ constexpr int dww_slabs(int cin) {
+  return (3 * cin + 63) / 64;
+}
+
+template <int N>
+struct DwWide {
+  static constexpr int S = N > 96 ? 2 : 4;              // slabs per group
+  static constexpr int E = dw_dy_group(N);
+  static constexpr int DY = DWW_TH * DWW_TW * N * 2;    // dy bytes per stage
+  static constexpr int MAX_STAGES = 4;
+  static_assert(DY % DW_ALIGN == 0, "stages stay 1024-byte aligned");
+  static int stages(int cin) {
+    const int st = (DW_SMEM_MAX - DW_ALIGN - 2 * MAX_STAGES * 8) /
+                   (dww_x_bytes(cin) + DY);
+    return st < MAX_STAGES ? st : MAX_STAGES;
+  }
+  static int smem(int cin) {
+    return DW_ALIGN + stages(cin) * (dww_x_bytes(cin) + DY) +
+           2 * MAX_STAGES * 8;
+  }
+};
+
+// The dynamic shared memory rounded up to DW_ALIGN (its base is only
+// guaranteed 16-byte aligned).
+__device__ __forceinline__ uint8_t* dw_smem_base(uint8_t* smem) {
+  const uint32_t a = hopper::smem_u32(smem);
+  return smem + ((DW_ALIGN - a % DW_ALIGN) % DW_ALIGN);
+}
+
+// p[0..1] = (first ? 0 : p[0..1]) + (d0, d1)
+__device__ __forceinline__ void dw_add(float* p, float d0, float d1,
+                                       bool first) {
+  float2 v = first ? make_float2(0.f, 0.f)
+                   : *reinterpret_cast<const float2*>(p);
+  v.x += d0;
+  v.y += d1;
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+template <int N>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+dw_wide(const __grid_constant__ CUtensorMap xmap,
+        const __grid_constant__ CUtensorMap dymap, float* __restrict__ part,
+        int Cin, int stages, int kinds, int h_tiles, int w_tiles, int tiles,
+        int splits) {
+  using C = DwWide<N>;
+  constexpr int S = C::S, E = C::E;
+  constexpr int GS = DWW_TW * 32;  // bytes per x channel group
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem = dw_smem_base(smem_raw);
+  const int xbytes = dww_x_bytes(Cin), stage_bytes = xbytes + C::DY;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * stage_bytes);
+  uint64_t* empty = full + C::MAX_STAGES;
+
+  const int split = blockIdx.x / kinds, kind = blockIdx.x % kinds;
+  const int kw = kind % 3, sg = kind / 3;
+  const int G = Cin / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;  // warpgroup
+  const int first = sg * 2 * S + g * S;
+  const int slabs = dww_slabs(Cin);
+  const int t_begin = (int)((long long)tiles * split / splits);
+  const int n = (int)((long long)tiles * (split + 1) / splits) - t_begin;
+
+  auto load = [&](int i) {
+    const int t = t_begin + i;
+    const int w0 = t % w_tiles * DWW_TW, r = t / w_tiles;
+    const int h0 = r % h_tiles * DWW_TH, bd = r / h_tiles;
+    const int s = i % stages;
+    uint8_t* st = smem + s * stage_bytes;
+    hopper::mbar_expect_tx(&full[s], stage_bytes);
+    hopper::tma_load_5d(st, &xmap, &full[s], 0, w0 + kw - 1, 0, h0 - 1, bd);
+    hopper::tma_load_5d(st + xbytes, &dymap, &full[s], 0, w0, 0, h0, bd);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], TILE_THREADS / 32);  // one per warp
+    }
+    hopper::mbar_init_fence();
+    for (int i = 0; i < min(n, stages); ++i) load(i);
+  }
+  __syncthreads();
+
+  float acc[S][N / 2] = {};
+  // D fragment: row m = 64 slab + 16 (warp % 4) + lane / 4 (+ 8) is (kh,
+  // ci) = (m / Cin, m % Cin); columns 8 q + 2 (lane % 4) + {0, 1}. The
+  // slices are written by the first flush and added to by the later ones.
+  float* pb = part + (size_t)split * 9 * Cin * N;
+  auto flush = [&](bool first_flush) {
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m =
+            64 * (first + j) + 16 * (warp % 4) + lane / 4 + 8 * half;
+        if (first + j >= slabs || m >= 3 * Cin) continue;
+        float* row = pb + ((size_t)((m / Cin) * 3 + kw) * Cin + m % Cin) * N;
+#pragma unroll
+        for (int q = 0; q < N / 8; ++q)
+          dw_add(row + 8 * q + 2 * (lane % 4), acc[j][4 * q + 2 * half],
+                 acc[j][4 * q + 2 * half + 1], first_flush);
+      }
+  };
+
+  // the tiles in runs of DW_FLUSH, the accumulators flushed after each run;
+  // a run's first products overwrite them (scale-d 0): writing registers
+  // that wgmma owns, even zeros, makes ptxas drain its pipeline
+  for (int i0 = 0; i0 < n; i0 += DW_FLUSH) {
+    for (int i = i0; i < min(n, i0 + DW_FLUSH); ++i) {
+      const int s = i % stages;
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+      const uint32_t xs = hopper::smem_u32(smem + s * stage_bytes);
+      const uint32_t ds = xs + xbytes;
+#pragma unroll
+      for (int j = 0; j < S; ++j) hopper::fence_regs(acc[j]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int r = 0; r < DWW_TH; ++r) {
+        const uint64_t bdesc = hopper::desc_mn(
+            ds + r * DWW_TW * N * 2, 16 * E, DWW_TW * 2 * E, 2 * E);
+        // every slot issues its product (a warpgroup with fewer than S
+        // slabs repeats its last one and flush drops the result): a wgmma
+        // on a branch is serialized
+#pragma unroll
+        for (int j = 0; j < S; ++j)
+          hopper::wgmma_ss<N, 1, 1>(
+              acc[j],
+              hopper::desc_mn(
+                  xs + (r * G + 4 * min(first + j, slabs - 1)) * GS, 256, GS,
+                  32),
+              bdesc, r > 0 || i > i0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < S; ++j) hopper::fence_regs(acc[j]);
+      hopper::wgmma_wait<1>();  // tile i - 1's products have retired
+      if (i > 0) {
+        const int done = i - 1, s_done = done % stages;
+        if (lane == 0) hopper::mbar_arrive(&empty[s_done]);
+        if (threadIdx.x == 0 && done + stages < n) {
+          hopper::mbar_wait(&empty[s_done], (done / stages) & 1);
+          load(done + stages);
+        }
+        __syncwarp();  // wgmma is warp-aligned: lane 0 rejoins its warp
+      }
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < S; ++j) hopper::fence_regs(acc[j]);
+    flush(i0 == 0);
+  }
+}
+
+constexpr int DWF2_TH = 2;                    // dy rows per tile
+constexpr int DWF2_TW = 128;                  // dy columns per tile
+constexpr int DWF2_RW = DWF2_TW + 16;         // raw x row columns
+constexpr int DWF2_XB = 7168;  // raw x bytes per stage (6,912 at Cin = 6)
+static_assert((DWF2_TH + 2) * DWF2_RW * 6 * 2 <= DWF2_XB, "x fits");
+
+template <int N>
+struct DwFold {
+  static constexpr int DY = DWF2_TH * DWF2_TW * N * 2;
+  static constexpr int STAGE = DWF2_XB + DY;
+  static constexpr int STAGES0 = (DW_SMEM_MAX - DW_ALIGN - 64) / STAGE;
+  static constexpr int STAGES = STAGES0 < 4 ? STAGES0 : 4;
+  static constexpr int SMEM = DW_ALIGN + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(STAGES >= 2, "a ring of two stages fits");
+  static_assert(STAGE % DW_ALIGN == 0 && DWF2_XB % DW_ALIGN == 0,
+                "the boxes land 1024-byte aligned");
+};
+
+template <int N>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+dw_fold(const __grid_constant__ CUtensorMap xmap,
+        const __grid_constant__ CUtensorMap dymap, float* __restrict__ part,
+        int Cin, int h_tiles, int w_tiles, long long tiles) {
+  using C = DwFold<N>;
+  constexpr int E = dw_dy_group(N), GS = DWF2_TW * 2 * E;  // dy group bytes
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem = dw_smem_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;  // warpgroup: dy row g of each tile
+  const long long t_begin = tiles * blockIdx.x / gridDim.x;
+  const int n = (int)(tiles * (blockIdx.x + 1) / gridDim.x - t_begin);
+  const int xbytes = (DWF2_TH + 2) * DWF2_RW * Cin * 2;
+
+  auto load = [&](int i) {
+    const long long t = t_begin + i;
+    const int w0 = (int)(t % w_tiles) * DWF2_TW;
+    const long long r = t / w_tiles;
+    const int h0 = (int)(r % h_tiles) * DWF2_TH, bd = (int)(r / h_tiles);
+    const int s = i % C::STAGES;
+    uint8_t* st = smem + s * C::STAGE;
+    hopper::mbar_expect_tx(&full[s], xbytes + C::DY);
+    hopper::tma_load_4d(st, &xmap, &full[s], 0, (w0 - 8) * Cin / 8, h0 - 1,
+                        bd);
+    hopper::tma_load_5d(st + DWF2_XB, &dymap, &full[s], 0, w0, 0, h0, bd);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], TILE_THREADS / 32);
+    }
+    hopper::mbar_init_fence();
+    for (int i = 0; i < min(n, C::STAGES); ++i) load(i);
+  }
+  __syncthreads();
+
+  // this thread's A rows m = 16 (warp % 4) + lane / 4 (+ 8) = tap * Cin +
+  // ci, as element offsets into the raw rows of a stage (pixel k = 2 (lane
+  // % 4) of the k step); -1 past 9 Cin
+  int base[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 16 * (warp % 4) + lane / 4 + 8 * h;
+    const int tap = m / Cin, ci = m % Cin;
+    base[h] = m < 9 * Cin ? (((tap / 3 + g) * DWF2_RW + tap % 3 + 7 +
+                              2 * (lane % 4)) * Cin + ci)
+                          : -1;
+  }
+
+  float acc[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+
+  // row m = tap * Cin + ci is dw's row (tap, ci): part[2 block + g][m][co]
+  float* pb = part + (size_t)(2 * blockIdx.x + g) * 9 * Cin * N;
+  bool flushed = false;
+  auto flush = [&]() {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = 16 * (warp % 4) + lane / 4 + 8 * half;
+      if (m >= 9 * Cin) continue;
+#pragma unroll
+      for (int q = 0; q < N / 8; ++q) {
+        dw_add(pb + (size_t)m * N + 8 * q + 2 * (lane % 4),
+               acc[4 * q + 2 * half], acc[4 * q + 2 * half + 1], !flushed);
+        acc[4 * q + 2 * half] = 0.f;
+        acc[4 * q + 2 * half + 1] = 0.f;
+      }
+    }
+    flushed = true;
+  };
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % C::STAGES;
+    hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
+    const uint16_t* raw =
+        reinterpret_cast<const uint16_t*>(smem + s * C::STAGE);
+    const uint32_t ds = hopper::smem_u32(smem + s * C::STAGE + DWF2_XB);
+    uint32_t a[DWF2_TW / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < DWF2_TW / 16; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // (row + 8 (q % 2), pixel + 8 (q / 2))
+        const int b = base[q % 2];
+        const int o = b + (16 * ks + 8 * (q / 2)) * Cin;
+        a[ks][q] = b < 0 ? 0u
+                         : (uint32_t)raw[o] | ((uint32_t)raw[o + Cin] << 16);
+      }
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DWF2_TW / 16; ++ks)
+      hopper::wgmma_rs<N, 1>(
+          acc, a[ks],
+          hopper::desc_mn(ds + g * DWF2_TW * N * 2 + ks * 32 * E, 16 * E, GS,
+                          2 * E));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();  // A's registers are free again
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && i + C::STAGES < n) {
+      hopper::mbar_wait(&empty[s], (i / C::STAGES) & 1);
+      load(i + C::STAGES);
+    }
+    __syncwarp();
+    if ((i + 1) % DW_FLUSH == 0 && i + 1 < n) flush();
+  }
+  flush();
+}
+
+// One m64n96k16 product of MN-major operands, for pinning the descriptor
+// conventions on the card: a [16 k][64 m] and b [16 k][96 n] (bf16,
+// row-major) -> d [64][96] f32 = a^T b. Each operand is staged in swizzle
+// ``swa`` / ``swb`` (0, 32 or 64 bytes) as blocks of
+// 8 K rows x E elements (E = 8 without swizzle, sw / 2 with), blocks
+// adjacent in K 16 E bytes apart and in M (N) 32 E apart; desc_mn gets
+// those two offsets, or, with ``swap``, each in the other's place. ``rs``
+// takes A from registers (wgmma RS, transposed B), else both by descriptor
+// (SS, transposed A and B).
+__global__ void __launch_bounds__(128)
+debug_wgmma_mn(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
+               float* __restrict__ d, int swa, int swb, int swap, int rs) {
+  __shared__ __align__(1024) uint16_t as[8 * 128];
+  __shared__ __align__(1024) uint16_t bs[12 * 128];
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  auto at = [](int mn, int k, int sw) {
+    const int e = sw ? sw / 2 : 8;
+    const int off = (mn / e) * 32 * e + (k / 8) * 16 * e + (k % 8) * 2 * e +
+                    (mn % e) * 2;
+    const int mask = sw ? (sw / 16 - 1) << 4 : 0;
+    return (off ^ ((off >> 3) & mask)) / 2;
+  };
+  for (int i = t; i < 16 * 64; i += 128) as[at(i % 64, i / 64, swa)] = a[i];
+  for (int i = t; i < 16 * 96; i += 128) bs[at(i % 96, i / 96, swb)] = b[i];
+  hopper::fence_async_smem();
+  __syncthreads();
+  float acc[48];
+#pragma unroll
+  for (int e = 0; e < 48; ++e) acc[e] = 0.f;
+  auto dsc = [&](const void* p, int sw) {
+    const uint32_t e = sw ? sw / 2 : 8, k_off = 16 * e, mn_off = 32 * e;
+    return swap ? hopper::desc_mn(hopper::smem_u32(p), mn_off, k_off, sw)
+                : hopper::desc_mn(hopper::smem_u32(p), k_off, mn_off, sw);
+  };
+  const uint64_t bdesc = dsc(bs, swb);
+  uint32_t ar[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = 16 * warp + lane / 4 + 8 * (q % 2);
+    const int k = 2 * (lane % 4) + 8 * (q / 2);
+    ar[q] = (uint32_t)a[k * 64 + m] | ((uint32_t)a[(k + 1) * 64 + m] << 16);
+  }
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+  if (rs)
+    hopper::wgmma_rs<96, 1>(acc, ar, bdesc);
+  else
+    hopper::wgmma_ss<96, 1, 1>(acc, dsc(as, swa), bdesc);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int q = 0; q < 12; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        d[(16 * warp + lane / 4 + 8 * half) * 96 + 8 * q + 2 * (lane % 4) +
+          e] = acc[4 * q + 2 * half + e];
+}
+
 // dw[i] = sum over splits of part[split][i], in split order
 __global__ void dw_reduce(const float* __restrict__ part,
                           float* __restrict__ dw, int splits, int n) {
@@ -961,14 +1384,52 @@ __global__ void dw_reduce(const float* __restrict__ part,
   dw[i] = s;
 }
 
+// The dw kernels by variant, as the wrapper names them.
+enum DwVariant { DW_GENERIC = 0, DW_WIDE = 1, DW_FOLD = 2, DW_FMA = 3 };
+
 struct DwGrid {
-  int c_chunks, n_tiles, splits;
+  int c_chunks, n_tiles, kinds, blocks, splits;
+  long long tiles;
+  int h_tiles, w_tiles;
 };
 
-DwGrid dw_grid(int BD, int H, int W, int Cin, int Cout, bool bf16) {
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    return 132;
+  return sms;
+}
+
+// generic / fma: (ci chunk, n tile, split) blocks, enough to fill the SMs
+// 8 times over; wide: splits x 3 kw x slab groups blocks, one wave; fold:
+// one block per SM, two partials (warpgroups) each.
+DwGrid dw_grid(int BD, int H, int W, int Cin, int Cout, int variant) {
+  DwGrid g{};
+  if (variant == DW_WIDE || variant == DW_FOLD) {
+    const int th = variant == DW_WIDE ? DWW_TH : DWF2_TH;
+    const int tw = variant == DW_WIDE ? DWW_TW : DWF2_TW;
+    g.h_tiles = (H + th - 1) / th;
+    g.w_tiles = (W + tw - 1) / tw;
+    g.tiles = (long long)BD * g.h_tiles * g.w_tiles;
+    const long long sms = sm_count();
+    if (variant == DW_WIDE) {
+      const int per_block = 2 * (Cout > 96 ? 2 : 4);  // slabs, as DwWide::S
+      g.kinds = 3 * ((dww_slabs(Cin) + per_block - 1) / per_block);
+      long long s = sms / g.kinds;
+      if (s > g.tiles) s = g.tiles;
+      g.splits = (int)(s < 1 ? 1 : s);
+      g.blocks = g.splits * g.kinds;
+    } else {
+      g.blocks = (int)(g.tiles < sms ? g.tiles : sms);
+      g.splits = 2 * g.blocks;
+    }
+    return g;
+  }
+  const bool bf16 = variant == DW_GENERIC;
   const int th = bf16 ? DW_TH : DWF_TH, tw = bf16 ? DW_TW : DWF_TW;
   const int ck = bf16 ? DW_CK : DWF_CK, tn = bf16 ? DW_TN : DWF_TC;
-  DwGrid g;
   g.c_chunks = (Cin + ck - 1) / ck;
   g.n_tiles = (Cout + tn - 1) / tn;
   const long long tiles =
@@ -977,6 +1438,7 @@ DwGrid dw_grid(int BD, int H, int W, int Cin, int Cout, bool bf16) {
   long long s = (DW_TARGET_BLOCKS + per_split - 1) / per_split;
   if (s > tiles) s = tiles;
   g.splits = (int)(s < 1 ? 1 : s);
+  g.blocks = per_split * g.splits;
   return g;
 }
 
@@ -1065,6 +1527,87 @@ cudaError_t launch_fold(const void* x, const void* wf, void* y, int BD, int H,
   return cudaGetLastError();
 }
 
+// A tensor map over t [BD, H, W, C] (bf16) ordered (e, W, C / e, H, BD): a
+// box {e, box_w, C / e, box_h, 1} lands as [row][channel group][pixel][e]
+// in the swizzle of 2 e bytes (e = 16 or 32), the MN-major layout of the
+// dw kernels (hopper::desc_mn).
+bool encode_group_map(CUtensorMap* map, const void* t, int BD, int H, int W,
+                      int C, int e, int box_w, int box_h) {
+  const int groups = C / e;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {(cuuint64_t)e, (cuuint64_t)W,
+                              (cuuint64_t)groups, (cuuint64_t)H,
+                              (cuuint64_t)BD};
+  const cuuint64_t strides[4] = {(cuuint64_t)C * 2, (cuuint64_t)e * 2,
+                                 (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[5] = {(cuuint32_t)e, (cuuint32_t)box_w,
+                             (cuuint32_t)groups, (cuuint32_t)box_h, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      e == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                const_cast<void*>(t), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int N>
+cudaError_t launch_dw_wide(const void* x, const void* dy, float* part,
+                           int BD, int H, int W, int Cin, const DwGrid& g,
+                           cudaStream_t s) {
+  CUtensorMap xmap, dymap;
+  const int E = DwWide<N>::E;
+  if (!encode_group_map(&xmap, x, BD, H, W, Cin, 16, DWW_TW, DWW_TH + 2) ||
+      !encode_group_map(&dymap, dy, BD, H, W, N, E, DWW_TW, DWW_TH))
+    return cudaErrorInvalidValue;
+  const int stages = DwWide<N>::stages(Cin), smem = DwWide<N>::smem(Cin);
+  if (stages < 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_wide<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (g.tiles > INT32_MAX) return cudaErrorInvalidValue;
+  dw_wide<N><<<g.blocks, TILE_THREADS, smem, s>>>(
+      xmap, dymap, part, Cin, stages, g.kinds, g.h_tiles, g.w_tiles,
+      (int)g.tiles, g.splits);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_dw_fold(const void* x, const void* dy, float* part,
+                           int BD, int H, int W, int Cin, const DwGrid& g,
+                           cudaStream_t s) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // x as [BD][H][W * Cin / 8][8]: a box is DWF2_TH + 2 raw rows of DWF2_RW
+  // pixels (16-byte runs, since W * Cin % 8 == 0)
+  CUtensorMap xmap, dymap;
+  const cuuint64_t dims[4] = {8, (cuuint64_t)W * Cin / 8, (cuuint64_t)H,
+                              (cuuint64_t)BD};
+  const cuuint64_t strides[3] = {16, (cuuint64_t)W * Cin * 2,
+                                 (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)(DWF2_RW * Cin / 8),
+                             DWF2_TH + 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(x), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      !encode_group_map(&dymap, dy, BD, H, W, N, dw_dy_group(N), DWF2_TW,
+                        DWF2_TH))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_fold<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DwFold<N>::SMEM);
+  if (err != cudaSuccess) return err;
+  dw_fold<N><<<g.blocks, TILE_THREADS, DwFold<N>::SMEM, s>>>(
+      xmap, dymap, part, Cin, g.h_tiles, g.w_tiles, g.tiles);
+  return cudaGetLastError();
+}
+
 // The three output widths the wgmma paths are built for.
 #define DISPATCH_COUT(COUT, CALL) \
   switch (COUT) {                 \
@@ -1140,14 +1683,28 @@ extern "C" int packed_conv_fwd_fold(const void* x, const void* wf, void* y,
 }
 
 // Registers, static shared memory, local (spill) bytes and dynamic shared
-// memory of one forward kernel: ``which`` 0 = conv_mma (generic), 1 =
-// conv_wide<cout>, 2 = conv_fold<cout>. Writes 4 ints to ``out``.
-extern "C" int packed_conv_kernel_attrs(int which, int cout, int* out) {
-  if (which == 0) return attrs(conv_mma, 0, out);
-  if (which == 1) {
-    DISPATCH_COUT(cout, attrs(conv_wide<N>, Wide<N>::SMEM, out))
+// memory of one band-conv kernel: ``which`` 0 = conv_mma (generic), 1 =
+// conv_wide<cout>, 2 = conv_fold<cout>, 3 = dw_mma, 4 = dw_wide<cout> (its
+// dynamic shared memory at ``cin``), 5 = dw_fold<cout>. Writes 4 ints to
+// ``out``.
+extern "C" int packed_conv_kernel_attrs(int which, int cout, int cin,
+                                        int* out) {
+  switch (which) {
+    case 0:
+      return attrs(conv_mma, 0, out);
+    case 1:
+      DISPATCH_COUT(cout, attrs(conv_wide<N>, Wide<N>::SMEM, out))
+    case 2:
+      DISPATCH_COUT(cout, attrs(conv_fold<N>, Fold<N>::SMEM, out))
+    case 3:
+      return attrs(dw_mma, 0, out);
+    case 4:
+      DISPATCH_COUT(cout, attrs(dw_wide<N>, DwWide<N>::smem(cin), out))
+    case 5:
+      DISPATCH_COUT(cout, attrs(dw_fold<N>, DwFold<N>::SMEM, out))
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  DISPATCH_COUT(cout, attrs(conv_fold<N>, Fold<N>::SMEM, out))
 }
 
 extern "C" int packed_conv_fwd_f32(const void* x, const void* w, void* y,
@@ -1162,36 +1719,48 @@ extern "C" int packed_conv_fwd_f32(const void* x, const void* w, void* y,
   return (int)cudaGetLastError();
 }
 
-// Number of partial sums the dw of this shape splits its pixels into; the
-// caller allocates ``part`` as f32 [splits, 3, 3, Cin, Cout].
+// Number of partial sums the dw of this shape splits its pixels into, for
+// ``variant`` 0 = generic (dw_mma), 1 = wide, 2 = fold, 3 = f32 (dw_fma);
+// the caller allocates ``part`` as f32 [splits, 3, 3, Cin, Cout].
 extern "C" int packed_conv_dw_splits(int BD, int H, int W, int Cin, int Cout,
-                                     int bf16) {
-  return dw_grid(BD, H, W, Cin, Cout, bf16 != 0).splits;
+                                     int variant) {
+  return dw_grid(BD, H, W, Cin, Cout, variant).splits;
+}
+
+// Each launches the first kernel of one variant (the partials).
+int dw_partials(const void* x, const void* dy, float* part, int BD, int H,
+                int W, int Cin, int Cout, const DwGrid& g, cudaStream_t s,
+                int variant) {
+  switch (variant) {
+    case DW_WIDE:
+      DISPATCH_COUT(Cout, launch_dw_wide<N>(x, dy, part, BD, H, W, Cin, g, s))
+    case DW_FOLD:
+      DISPATCH_COUT(Cout, launch_dw_fold<N>(x, dy, part, BD, H, W, Cin, g, s))
+    case DW_GENERIC:
+      dw_mma<<<g.blocks, DW_THREADS, 0, s>>>(
+          static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
+          part, BD, H, W, Cin, Cout, g.c_chunks, g.n_tiles, g.splits,
+          Cin % 8 == 0 && aligned16(x), Cout % 8 == 0 && aligned16(dy));
+      return (int)cudaGetLastError();
+    default:
+      dw_fma<<<g.blocks, DWF_THREADS, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(dy), part,
+          BD, H, W, Cin, Cout, g.c_chunks, g.n_tiles, g.splits);
+      return (int)cudaGetLastError();
+  }
 }
 
 // dw f32 [3, 3, Cin, Cout] of x [BD, H, W, Cin] and dy [BD, H, W, Cout]
-// (bf16 or f32, both the same), through the f32 scratch ``part``.
+// through the f32 scratch ``part``: the variant's partials, then dw_reduce.
 static int dw_launch(const void* x, const void* dy, void* part, void* dw,
                      int BD, int H, int W, int Cin, int Cout, int splits,
-                     void* stream, bool bf16) {
-  const DwGrid g = dw_grid(BD, H, W, Cin, Cout, bf16);
+                     void* stream, int variant) {
+  const DwGrid g = dw_grid(BD, H, W, Cin, Cout, variant);
   if (g.splits != splits) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)g.c_chunks * g.n_tiles * g.splits;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    dw_mma<<<blocks, DW_THREADS, 0, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
-        static_cast<float*>(part), BD, H, W, Cin, Cout, g.c_chunks,
-        g.n_tiles, g.splits, Cin % 8 == 0 && aligned16(x),
-        Cout % 8 == 0 && aligned16(dy));
-  } else {
-    dw_fma<<<blocks, DWF_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<float*>(part), BD, H, W, Cin, Cout, g.c_chunks,
-        g.n_tiles, g.splits);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = dw_partials(x, dy, static_cast<float*>(part), BD, H, W,
+                              Cin, Cout, g, s, variant);
+  if (err != 0) return err;
   const int n = 9 * Cin * Cout;
   dw_reduce<<<(n + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<float*>(dw), splits, n);
@@ -1202,12 +1771,46 @@ extern "C" int packed_conv_dw_bf16(const void* x, const void* dy, void* part,
                                    void* dw, int BD, int H, int W, int Cin,
                                    int Cout, int splits, void* stream) {
   return dw_launch(x, dy, part, dw, BD, H, W, Cin, Cout, splits, stream,
-                   true);
+                   DW_GENERIC);
+}
+
+// Wide path: x bf16 [BD, H, W, Cin] with Cin % 16 == 0 and dy [BD, H, W,
+// Cout] with Cout 64, 96 or 144, both 16-byte aligned.
+extern "C" int packed_conv_dw_wide(const void* x, const void* dy, void* part,
+                                   void* dw, int BD, int H, int W, int Cin,
+                                   int Cout, int splits, void* stream) {
+  if (Cin % 16 != 0 || !aligned16(x) || !aligned16(dy) || !aligned16(part))
+    return (int)cudaErrorInvalidValue;
+  return dw_launch(x, dy, part, dw, BD, H, W, Cin, Cout, splits, stream,
+                   DW_WIDE);
+}
+
+// Folded-tap path: x bf16 [BD, H, W, Cin] with Cin 2, 4 or 6 and W * Cin %
+// 8 == 0, dy as for the wide path.
+extern "C" int packed_conv_dw_fold(const void* x, const void* dy, void* part,
+                                   void* dw, int BD, int H, int W, int Cin,
+                                   int Cout, int splits, void* stream) {
+  if (Cin < 2 || Cin > 6 || Cin % 2 != 0 || (long long)W * Cin % 8 != 0 ||
+      !aligned16(x) || !aligned16(dy) || !aligned16(part))
+    return (int)cudaErrorInvalidValue;
+  return dw_launch(x, dy, part, dw, BD, H, W, Cin, Cout, splits, stream,
+                   DW_FOLD);
 }
 
 extern "C" int packed_conv_dw_f32(const void* x, const void* dy, void* part,
                                   void* dw, int BD, int H, int W, int Cin,
                                   int Cout, int splits, void* stream) {
   return dw_launch(x, dy, part, dw, BD, H, W, Cin, Cout, splits, stream,
-                   false);
+                   DW_FMA);
+}
+
+// One MN-major wgmma tile (debug_wgmma_mn): a [16, 64] and b [16, 96] bf16,
+// d [64, 96] f32.
+extern "C" int packed_conv_debug_wgmma_mn(const void* a, const void* b,
+                                          void* d, int swa, int swb,
+                                          int swap, int rs, void* stream) {
+  debug_wgmma_mn<<<1, 128, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
+      static_cast<float*>(d), swa, swb, swap, rs);
+  return (int)cudaGetLastError();
 }

@@ -14,7 +14,11 @@ call goes through ``_PackedConv``, whose backward mirrors
   flipped over (kh, kw) and transposed over (in, out), as the TPU side does;
 - ``packed_conv_dw(xh, dy)``: the f32 ``[3, 3, Cin, Cout]`` weight gradient
   (the port of ``_dw_rows``), a split reduction with no atomics, so it is
-  deterministic; the backward casts it to ``wp``'s dtype.
+  deterministic; the backward casts it to ``wp``'s dtype. Its bf16 kernels
+  are chosen by shape in ``_dw_variant`` as the forward's: ``wide`` (Cin %
+  8 == 0, wgmma with the taps' kh folded into M), ``fold`` (Cin 2, 4 or 6:
+  all nine taps folded into M = 64) and ``generic`` (the mma.sync kernel);
+  f32 runs ``fma``.
 
 Each of the three, on a CUDA tensor, launches its hand-written kernel in
 ``csrc/packed_conv.cu`` (built with nvcc for sm_90a at first use) or raises;
@@ -32,7 +36,8 @@ compare against; the CPU also takes f64, for ``gradcheck``. Each wrapper
 counts its own launches (``packed_conv.launches``,
 ``packed_conv_dx.launches``, ``packed_conv_dw.launches``); the forward
 kernel also counts its launches per variant in ``variant_launches``,
-whichever wrapper called it.
+whichever wrapper called it, and the dw kernels theirs in
+``dw_variant_launches``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,11 @@ WGMMA_COUT = (64, 96, 144)
 FOLD_CIN = (2, 4, 6)
 FOLD_K = 64
 variant_launches = dict.fromkeys(_FWD_SYMBOL, 0)
+# the weight-gradient kernels by variant (the index is the C side's)
+_DW_SYMBOL = {"generic": "packed_conv_dw_bf16", "wide": "packed_conv_dw_wide",
+              "fold": "packed_conv_dw_fold", "fma": "packed_conv_dw_f32"}
+DW_WIDE_MAX_CIN = 240   # two ring stages of the wide dw kernel fit
+dw_variant_launches = dict.fromkeys(_DW_SYMBOL, 0)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -110,6 +120,23 @@ def _variant(x: torch.Tensor, w: torch.Tensor) -> str:
     return "generic"
 
 
+def _dw_variant(x: torch.Tensor, dy: torch.Tensor) -> str:
+    """The dw kernel for x [BD, H, W, Cin] and dy [BD, H, W, Cout]: "wide"
+    (bf16, Cin % 16 == 0 up to DW_WIDE_MAX_CIN), "fold" (bf16, Cin 2, 4 or 6
+    and W * Cin % 8 == 0), both for Cout 64, 96 or 144 and 16-byte aligned
+    x and dy; "generic" for every other bf16 shape; "fma" for f32."""
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    cin, cout = x.shape[-1], dy.shape[-1]
+    if cout not in WGMMA_COUT or x.data_ptr() % 16 or dy.data_ptr() % 16:
+        return "generic"
+    if cin % 16 == 0 and cin <= DW_WIDE_MAX_CIN:
+        return "wide"
+    if cin in FOLD_CIN and x.shape[2] * cin % 8 == 0:
+        return "fold"
+    return "generic"
+
+
 def _wide_weight(w: torch.Tensor) -> torch.Tensor:
     """The band [3, 3, Cin, Cout] as the wide kernel streams it:
     [ceil(Cin / 16), 9, 2, Cout, 8] = per 16-channel chunk, per tap, the two
@@ -137,7 +164,11 @@ _RELAYOUT = {"wide": _wide_weight, "fold": _fold_weight}
 @functools.cache
 def _kernel(symbol: str):
     fn = getattr(load_library("packed_conv"), symbol)
-    if symbol.startswith("packed_conv_fwd"):
+    if symbol == "packed_conv_debug_wgmma_mn":
+        # a, b, d, swa, swb, swap, rs, stream
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+    elif symbol.startswith("packed_conv_fwd"):
         # x, w, y, BD, H, W, Cin, Cout, stream
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
@@ -148,16 +179,20 @@ def _kernel(symbol: str):
     return fn
 
 
-def kernel_attrs(variant: str, cout: int) -> dict:
+def kernel_attrs(variant: str, cout: int, dw: bool = False,
+                 cin: int = 144) -> dict:
     """Registers, static and dynamic shared memory and local (spill) bytes
-    per thread of the bf16 forward kernel ``variant`` at ``cout`` (wide and
-    fold are one template instance per Cout)."""
+    per thread of the bf16 forward kernel ``variant`` at ``cout``, or with
+    ``dw`` of the dw kernel (wide and fold are one template instance per
+    Cout; the wide dw kernel's ring, and so its shared memory, depends on
+    ``cin``)."""
     fn = load_library("packed_conv").packed_conv_kernel_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    _raise_on(fn(("generic", "wide", "fold").index(variant), cout, out),
-              f"packed_conv_kernel_attrs({variant}, {cout})")
+    which = ("generic", "wide", "fold").index(variant) + 3 * dw
+    _raise_on(fn(which, cout, cin, out),
+              f"packed_conv_kernel_attrs({variant}, {cout}, dw={dw})")
     return dict(zip(("registers", "static_smem", "local_bytes",
                      "dynamic_smem"), out))
 
@@ -168,6 +203,23 @@ def _dw_splits():
     fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
     return fn
+
+
+def _debug_wgmma_mn(a: torch.Tensor, b: torch.Tensor, swa: int, swb: int,
+                    swap: bool = False, rs: bool = False) -> torch.Tensor:
+    """One m64n96k16 wgmma of MN-major operands on the card: a [16, 64] and
+    b [16, 96] bf16 -> a^T b [64, 96] f32, each staged in the swizzle of
+    ``swa`` / ``swb`` bytes (0, 32 or 64) and described by
+    ``hopper::desc_mn`` (with its two offsets exchanged where ``swap``); A
+    from registers where ``rs``. It pins the descriptor conventions of
+    ``csrc/hopper.cuh`` that the dw kernels rely on."""
+    d = torch.empty((64, 96), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        _raise_on(_kernel("packed_conv_debug_wgmma_mn")(
+            a.contiguous().data_ptr(), b.contiguous().data_ptr(),
+            d.data_ptr(), swa, swb, int(swap), int(rs),
+            torch.cuda.current_stream().cuda_stream), "debug_wgmma_mn")
+    return d
 
 
 def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -286,24 +338,42 @@ def packed_conv_dw(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          f"{tuple(dy.shape)} differ in [BD, H, W]")
     if xh.device.type == "cpu":
         return packed_conv_dw_reference(xh, dy)
-    if not (xh.is_contiguous() and dy.is_contiguous()):
+    dw = _launch_dw(xh, dy)
+    packed_conv_dw.launches += 1
+    return dw
+
+
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor,
+               variant: str | None = None) -> torch.Tensor:
+    """The dw kernels on contiguous CUDA tensors: the one ``_dw_variant``
+    picks, or ``variant`` where it is "generic", which takes every bf16
+    shape (the on-card timing of the wgmma kernels against it). Counts the
+    launch in ``dw_variant_launches``, not in the wrapper's count."""
+    if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("packed_conv_dw wants contiguous xh and dy")
-    BD, H, W, Cin = xh.shape
+    BD, H, W, Cin = x.shape
     Cout = dy.shape[-1]
     dw = torch.zeros((3, 3, Cin, Cout), dtype=torch.float32,
-                     device=xh.device)
-    if xh.numel() == 0 or dw.numel() == 0:
+                     device=x.device)
+    if x.numel() == 0 or dw.numel() == 0:
         return dw
-    bf16 = xh.dtype == torch.bfloat16
-    with torch.cuda.device(xh.device):
-        splits = _dw_splits()(BD, H, W, Cin, Cout, int(bf16))
+    picked = _dw_variant(x, dy)
+    if variant is not None and variant != picked and not (
+            variant == "generic" and picked != "fma"):
+        raise ValueError(f"packed_conv_dw: the {variant} kernel does not "
+                         f"take x {tuple(x.shape)} {x.dtype} and Cout {Cout}")
+    variant = variant or picked
+    with torch.cuda.device(x.device):
+        splits = _dw_splits()(BD, H, W, Cin, Cout, list(_DW_SYMBOL)
+                              .index(variant))
         part = torch.empty((splits, 3, 3, Cin, Cout), dtype=torch.float32,
-                           device=xh.device)
-        _raise_on(_kernel(f"packed_conv_dw_{_SUFFIX[xh.dtype]}")(
-            xh.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                           device=x.device)
+        _raise_on(_kernel(_DW_SYMBOL[variant])(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
             BD, H, W, Cin, Cout, splits,
-            torch.cuda.current_stream().cuda_stream), "packed_conv_dw")
-    packed_conv_dw.launches += 1
+            torch.cuda.current_stream().cuda_stream),
+            f"packed_conv_dw ({variant})")
+    dw_variant_launches[variant] += 1
     return dw
 
 
