@@ -235,6 +235,8 @@ def _dw_counted(want, x, dy, variant=None):
     ((2, 8, 256, 16), 64, "wide"),    # one slab of 48 rows
     ((2, 7, 100, 96), 144, "wide"),   # Cout 144: two slabs per warpgroup
     ((2, 5, 37, 208), 64, "wide"),    # 3 Cin = 624: 10 slabs, 2 groups
+    ((1, 4, 40, 256), 96, "wide"),    # a ring of two stages
+    ((1, 4, 40, 256), 144, "generic"),  # two ring stages do not fit
     ((2, 6, 20, 6), 96, "fold"),
     ((1, 5, 132, 4), 64, "fold"),     # a tail past 128 columns
     ((1, 3, 8, 2), 144, "fold"),
@@ -248,6 +250,18 @@ def test_dw_variants_match_plain(cuda, shape, cout, variant):
     ref = packed_conv_dw_reference(x, dy)
     rel = (ours - ref).norm() / ref.norm()
     assert ours.dtype == torch.float32 and rel < 1e-5, rel
+
+
+def test_dw_wide_fits(cuda):
+    """The wide dw kernel's own rule (two ring stages in shared memory),
+    which ``_dw_variant`` asks for on the card: Cin up to 240 at Cout 144,
+    272 at 96, 304 at 64; never a Cin off the 16-channel groups or a Cout
+    with no instance."""
+    fits = pc._dw_wide_fits
+    for cout, most in ((144, 240), (96, 272), (64, 304)):
+        assert fits(16, cout) and fits(most, cout)
+        assert not fits(most + 16, cout)
+    assert not fits(24, 96) and not fits(0, 96) and not fits(144, 128)
 
 
 def test_dw_generic_kernel_on_request(cuda):

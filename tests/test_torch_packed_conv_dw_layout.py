@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from transoar_tpu_torch.ops.kernels.packed_conv import (
-    DW_WIDE_MAX_CIN, _dw_variant, packed_conv_dw_reference)
+    _dw_variant, packed_conv_dw_reference)
 
 # the tiles and the flush period of csrc/packed_conv.cu (DWW_TH x DWW_TW,
 # DWF2_TH x DWF2_TW, DW_FLUSH)
@@ -46,7 +46,7 @@ GENERIC = [
     ((2, 5, 33, 32), 100),    # Cout not a multiple of 8
     ((2, 5, 33, 32), 128),    # Cout without a wgmma instance
     ((1, 5, 33, 24), 96),     # Cin % 8 == 0 but not a multiple of 16
-    ((1, 4, 8, DW_WIDE_MAX_CIN + 16), 96),  # two ring stages do not fit
+    ((1, 4, 8, 12), 96),      # Cin 12: even, not a fold width, not % 16
     ((2, 8, 18, 6), 96),      # W * Cin % 8 != 0: rows not 16-byte aligned
 ]
 
@@ -186,12 +186,20 @@ def test_dw_wide_flush_runs():
 
 
 def test_dw_wide_row_efficiency():
-    """The kh fold's padding at the main path's Cin = 144: 432 of 448 rows
-    of 7 m64 slabs are used, against 432 of 576 with 64-channel slabs per
-    tap (9 of 144 / 64 -> 3 slabs each)."""
+    """The rows dw_wide computes at the main path's Cin = 144, Cout = 96:
+    the 3 Cin = 432 rows of the kh fold fill 7 m64 slabs; a block's two
+    warpgroups hold S = 4 slots each and every slot runs its product for
+    every dy row (a slot past the last slab repeats it), so 512 rows are
+    computed and 432 used (84.4%), against 432 of 576 with 64-channel slabs
+    per tap (3 taps x ceil(144 / 64) slabs). At Cout = 144 (S = 2) the 7
+    slabs take two blocks' 8 slots: the same 512."""
     cin = 144
     slabs = -(-3 * cin // 64)
-    assert (slabs, 3 * cin, 64 * slabs) == (7, 432, 448)
+    for s in (4, 2):
+        groups = -(-slabs // (2 * s))     # blocks per kw
+        computed = 64 * 2 * s * groups
+        assert (slabs, 3 * cin, computed) == (7, 432, 512)
+    assert 3 * cin / computed == 0.84375
     assert 3 * -(-cin // 64) * 64 == 576
 
 

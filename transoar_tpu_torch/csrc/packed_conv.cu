@@ -983,20 +983,22 @@ dw_fma(const float* __restrict__ x, const float* __restrict__ dy,
 // W, groups, H, BD); zeros outside the image). A row is G = Cin / 16
 // groups further on, so M row m = kh Cin + ci of dy row r sits in block
 // r G + m / 16: one descriptor with a uniform block stride covers (kh, ci)
-// across the row boundary, and 3 Cin rows take ceil(3 Cin / 64) m64 slabs
-// (432 of 448 rows used at Cin = 144, against 432 of 576 for 64-channel
-// slabs per tap). A block owns one kw (its x box starts kw - 1 columns
-// over) and up to 2 S slabs, S per warpgroup with S m64 x N accumulators
-// (S = 4 at N <= 96: 192 registers); each dy row of the tile is one k16
-// step against every slab. The grid is splits x 3 kw x slab groups, one
-// wave over the SMs; a split is a contiguous range of tiles, so its three
-// kw blocks walk the same pixels together and read x and dy through L2.
-// ptxas serializes the whole wgmma chain (C7518 / C7520) when code on a
-// branch touches the accumulators or issues a wgmma; so every slot issues
-// its product, a run's first products overwrite the accumulators (scale-d
-// 0) instead of zeroing them, and only the flush, after the last wait,
-// reads them (a quarter less time than the serialized build at the
-// flagship shape on an H100; 254 registers at N = 96, no spills).
+// across the row boundary, and 3 Cin rows take ceil(3 Cin / 64) m64 slabs.
+// A block owns one kw (its x box starts kw - 1 columns over) and up to 2 S
+// slabs, S per warpgroup with S m64 x N accumulators (S = 4 at N <= 96: 192
+// registers); each dy row of the tile is one k16 step against every slot.
+// The grid is splits x 3 kw x slab groups, one wave over the SMs; a split
+// is a contiguous range of tiles, so its three kw blocks walk the same
+// pixels together and read x and dy through L2. ptxas serializes the whole
+// wgmma chain (C7518 / C7520) when code on a branch touches the
+// accumulators or holds a wgmma; so every slot runs its product (a slot
+// past the last slab repeats it and the flush drops the copy), a run's
+// first products overwrite the accumulators (scale-d 0) instead of zeroing
+// them, and only the flush, after the last wait, reads them (a quarter less
+// time than the serialized build at the flagship shape on an H100; 254
+// registers at N = 96, no spills). At Cin = 144, N = 96 the 7 slabs take
+// the 8 slots of one block, so 432 of the 512 rows computed are used (84.4%,
+// against 432 of 576 for 64-channel slabs per tap).
 //
 // dw_fold<N>: the nine taps fold into M = 9 Cin <= 54 (one m64 slab, 84%
 // of its rows used at Cin = 6), N = Cout, K = pixels. A persistent grid, a
@@ -1393,6 +1395,25 @@ struct DwGrid {
   int h_tiles, w_tiles;
 };
 
+// The three output widths the wgmma paths are built for.
+#define DISPATCH_COUT(COUT, CALL) \
+  switch (COUT) {                 \
+    case 64: {                    \
+      constexpr int N = 64;       \
+      return (int)CALL;           \
+    }                             \
+    case 96: {                    \
+      constexpr int N = 96;       \
+      return (int)CALL;           \
+    }                             \
+    case 144: {                   \
+      constexpr int N = 144;      \
+      return (int)CALL;           \
+    }                             \
+    default:                      \
+      return (int)cudaErrorInvalidValue; \
+  }
+
 int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1400,6 +1421,12 @@ int sm_count() {
           cudaSuccess || sms < 1)
     return 132;
   return sms;
+}
+
+// The slab slots of one dw_wide<Cout> warpgroup, DwWide<N>::S (for a Cout
+// with no instance the launch refuses the shape).
+int dww_group_slots(int cout) {
+  DISPATCH_COUT(cout, DwWide<N>::S)
 }
 
 // generic / fma: (ci chunk, n tile, split) blocks, enough to fill the SMs
@@ -1415,7 +1442,7 @@ DwGrid dw_grid(int BD, int H, int W, int Cin, int Cout, int variant) {
     g.tiles = (long long)BD * g.h_tiles * g.w_tiles;
     const long long sms = sm_count();
     if (variant == DW_WIDE) {
-      const int per_block = 2 * (Cout > 96 ? 2 : 4);  // slabs, as DwWide::S
+      const int per_block = 2 * dww_group_slots(Cout);  // two warpgroups
       g.kinds = 3 * ((dww_slabs(Cin) + per_block - 1) / per_block);
       long long s = sms / g.kinds;
       if (s > g.tiles) s = g.tiles;
@@ -1608,25 +1635,6 @@ cudaError_t launch_dw_fold(const void* x, const void* dy, float* part,
   return cudaGetLastError();
 }
 
-// The three output widths the wgmma paths are built for.
-#define DISPATCH_COUT(COUT, CALL) \
-  switch (COUT) {                 \
-    case 64: {                    \
-      constexpr int N = 64;       \
-      return (int)CALL;           \
-    }                             \
-    case 96: {                    \
-      constexpr int N = 96;       \
-      return (int)CALL;           \
-    }                             \
-    case 144: {                   \
-      constexpr int N = 144;      \
-      return (int)CALL;           \
-    }                             \
-    default:                      \
-      return (int)cudaErrorInvalidValue; \
-  }
-
 template <typename Kernel>
 int attrs(Kernel kernel, int dynamic, int* out) {
   cudaFuncAttributes a;
@@ -1717,6 +1725,16 @@ extern "C" int packed_conv_fwd_f32(const void* x, const void* w, void* y,
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<float*>(y), H, W, Cin, Cout, w_tiles, c_tiles);
   return (int)cudaGetLastError();
+}
+
+// 1 where dw_wide<Cout> takes Cin: Cin % 16 == 0, Cout 64, 96 or 144, and
+// two stages of its ring fit in shared memory (the rule its launch holds
+// to); else 0.
+extern "C" int packed_conv_dw_wide_fits(int cin, int cout) {
+  if (cin < 16 || cin % 16 != 0 ||
+      (cout != 64 && cout != 96 && cout != 144))
+    return 0;
+  DISPATCH_COUT(cout, (DwWide<N>::stages(cin) >= 2))
 }
 
 // Number of partial sums the dw of this shape splits its pixels into, for

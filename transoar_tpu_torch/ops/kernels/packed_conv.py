@@ -16,9 +16,9 @@ call goes through ``_PackedConv``, whose backward mirrors
   (the port of ``_dw_rows``), a split reduction with no atomics, so it is
   deterministic; the backward casts it to ``wp``'s dtype. Its bf16 kernels
   are chosen by shape in ``_dw_variant`` as the forward's: ``wide`` (Cin %
-  8 == 0, wgmma with the taps' kh folded into M), ``fold`` (Cin 2, 4 or 6:
-  all nine taps folded into M = 64) and ``generic`` (the mma.sync kernel);
-  f32 runs ``fma``.
+  16 == 0 where its ring fits, wgmma with the taps' kh folded into M),
+  ``fold`` (Cin 2, 4 or 6: all nine taps folded into M = 64) and
+  ``generic`` (the mma.sync kernel); f32 runs ``fma``.
 
 Each of the three, on a CUDA tensor, launches its hand-written kernel in
 ``csrc/packed_conv.cu`` (built with nvcc for sm_90a at first use) or raises;
@@ -62,7 +62,6 @@ variant_launches = dict.fromkeys(_FWD_SYMBOL, 0)
 # the weight-gradient kernels by variant (the index is the C side's)
 _DW_SYMBOL = {"generic": "packed_conv_dw_bf16", "wide": "packed_conv_dw_wide",
               "fold": "packed_conv_dw_fold", "fma": "packed_conv_dw_f32"}
-DW_WIDE_MAX_CIN = 240   # two ring stages of the wide dw kernel fit
 dw_variant_launches = dict.fromkeys(_DW_SYMBOL, 0)
 
 
@@ -122,15 +121,19 @@ def _variant(x: torch.Tensor, w: torch.Tensor) -> str:
 
 def _dw_variant(x: torch.Tensor, dy: torch.Tensor) -> str:
     """The dw kernel for x [BD, H, W, Cin] and dy [BD, H, W, Cout]: "wide"
-    (bf16, Cin % 16 == 0 up to DW_WIDE_MAX_CIN), "fold" (bf16, Cin 2, 4 or 6
-    and W * Cin % 8 == 0), both for Cout 64, 96 or 144 and 16-byte aligned
-    x and dy; "generic" for every other bf16 shape; "fma" for f32."""
+    (bf16, Cin % 16 == 0), "fold" (bf16, Cin 2, 4 or 6 and W * Cin % 8 ==
+    0), both for Cout 64, 96 or 144 and 16-byte aligned x and dy; "generic"
+    for every other bf16 shape; "fma" for f32. On a CUDA tensor "wide" also
+    needs two stages of its ring to fit in shared memory, the C side's rule
+    (``packed_conv_dw_wide_fits``); the CPU runs the plain version whatever
+    the variant, so it does not build the library to ask."""
     if x.dtype != torch.bfloat16:
         return "fma"
     cin, cout = x.shape[-1], dy.shape[-1]
     if cout not in WGMMA_COUT or x.data_ptr() % 16 or dy.data_ptr() % 16:
         return "generic"
-    if cin % 16 == 0 and cin <= DW_WIDE_MAX_CIN:
+    if cin % 16 == 0 and (x.device.type != "cuda"
+                          or _dw_wide_fits(cin, cout)):
         return "wide"
     if cin in FOLD_CIN and x.shape[2] * cin % 8 == 0:
         return "fold"
@@ -179,22 +182,29 @@ def _kernel(symbol: str):
     return fn
 
 
-def kernel_attrs(variant: str, cout: int, dw: bool = False,
-                 cin: int = 144) -> dict:
+def kernel_attrs(variant: str, cout: int, dw: bool = False) -> dict:
     """Registers, static and dynamic shared memory and local (spill) bytes
     per thread of the bf16 forward kernel ``variant`` at ``cout``, or with
     ``dw`` of the dw kernel (wide and fold are one template instance per
-    Cout; the wide dw kernel's ring, and so its shared memory, depends on
-    ``cin``)."""
+    Cout; the wide dw kernel's ring, and so its shared memory, is given at
+    the main path's Cin of 144)."""
     fn = load_library("packed_conv").packed_conv_kernel_attrs
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
     which = ("generic", "wide", "fold").index(variant) + 3 * dw
-    _raise_on(fn(which, cout, cin, out),
+    _raise_on(fn(which, cout, 144, out),
               f"packed_conv_kernel_attrs({variant}, {cout}, dw={dw})")
     return dict(zip(("registers", "static_smem", "local_bytes",
                      "dynamic_smem"), out))
+
+
+@functools.cache
+def _dw_wide_fits(cin: int, cout: int) -> bool:
+    fn = load_library("packed_conv").packed_conv_dw_wide_fits
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return bool(fn(cin, cout))
 
 
 @functools.cache
