@@ -8,7 +8,10 @@ each printing a line; any failure exits non-zero before the result lines:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from csrc/, one nvcc per source, all
    started together; the registers, shared memory and spill bytes of each
-   bf16 forward and dw kernel of the band conv (generic, wide and fold);
+   bf16 forward and dw kernel of the band conv (generic, wide and fold) and
+   of the bf16 window attention kernels (generic fwd_mma / bwd_mma at d =
+   16, fwd_wg / bwd_wg), and any wgmma serialisation note of ptxas (C7512,
+   C7518, C7520) in the window attention's build;
 3. forward kernel vs plain: packed_conv against packed_conv_reference at
    the stage-0 shapes of the four paths (foc_dec_amos and
    swin_fpn_visceral, serving batch 1 and training batch 2) and a ragged
@@ -27,14 +30,24 @@ each printing a line; any failure exits non-zero before the result lines:
 5. window attention kernels vs plain: fused_window_attention and its
    backward at each of swin_fpn_visceral's four Swin stages at batch 2
    (N = 125, d = 16; q, k, v as views of the qkv projection), shifted and
-   unshifted, and a ragged shape (N = 100, d = 8, odd B_): bf16 o, dq, dk,
-   dv within rtol 1.6e-2 atol 1e-2, dbias rel-L2 <= 1e-4 against the f32
-   plain version and bit-identical when run twice; the f32 variants
-   within 1e-5, dbias included; timed as phase 3, with SDPA
-   (``scaled_dot_product_attention`` with the bias + mask as
+   unshifted, and two ragged shapes (N = 100, odd B_; d = 16 and d = 8):
+   the kernel the wrapper picks (``wg`` at d = 16, ``generic`` at d = 8)
+   and, for the bf16 rows, the generic kernel (the mma.sync kernel which
+   the wg kernels replaced on these shapes): bf16 o, dq, dk, dv within rtol
+   1.6e-2 atol 1e-2, dbias rel-L2 <= 1e-4 against the f32 plain version and
+   bit-identical when run twice; the f32 variants within 1e-5, dbias
+   included; timed as phase 3 (the kernel and the generic kernel), with
+   SDPA (``scaled_dot_product_attention`` with the bias + mask as
    ``attn_mask``) for scale: its forward beside the forward, its backward
    alone (on a retained graph) beside the backward, and forward +
-   backward of both; each timed row with its TFLOP/s and bound / ms;
+   backward of both. The picked and the generic kernel go through one
+   entry (``_launch_fwd`` / ``_launch_bwd``), and every time of the phase
+   is the device's: a spin kernel holds the card while the host enqueues
+   the timed call, so the events do not time the host. ``call_ms`` is the
+   public wrapper's time as a caller sees it, host work included. Each
+   timed row prints its variant, TFLOP/s, bound / ms and ALU floor (the
+   scores' exponentials over the SFU rate or their other f32 operations
+   over the FP32 rate, the larger; printed only, not in the result line);
 6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain,
    the generic kernel and cuDNN on one shape;
 7. small models, CPU vs card: tiny f32 flagship-shaped and Swin-shaped
@@ -64,18 +77,20 @@ each printing a line; any failure exits non-zero before the result lines:
 11. Swin serving: full-width swin_fpn_visceral (160x160x256, bf16, seeded
    random weights) through ``predict.main`` on two volumes off the grid;
    20 valid detections each, 8 window-forward and 2 packed_conv launches
-   per volume;
+   per volume, every window launch on fwd_wg;
 12. Swin training: ``train.train`` on full-width swin_fpn_visceral at batch
    2 over a synthetic 160x160x256 dataset of 6 train and 2 val cases (20
    organs): 1 epoch = 3 steps + 2 validations; as phase 10, with 8 / 8
-   window forward / backward and 4 / 1 / 2 band-conv launches per step and
-   peak memory under 40 GiB.
+   window forward / backward and 4 / 1 / 2 band-conv launches per step,
+   every window launch on fwd_wg / bwd_wg, and peak memory under 40 GiB.
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; phases 9-12 also require every launch of the band conv's
 forward kernel (forward and dx), and phases 10 and 12 every launch of its
 dw kernel, to have taken the wide or the fold variant, never the generic
-one. Then one JSON line of per-kernel results
+one, and every launch of the window kernels to have taken fwd_wg /
+bwd_wg (none on the flagship's paths). Then one JSON line of per-kernel
+results
 and, last, the device line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
@@ -118,13 +133,29 @@ STEP_LAUNCHES = {"packed_conv": 4, "packed_conv_dx": 1, "packed_conv_dw": 2}
 SWIN_STAGES = [((80, 80, 130), 3), ((40, 40, 65), 6), ((20, 20, 35), 12),
                ((10, 10, 20), 24)]
 SWIN_N, SWIN_D = 125, 16
-RAGGED_WINDOWS = (7, 3, 100, 8, 7)  # B_, H, N, d, nW
+# B_, H, N, d, nW: ragged N and odd B_ at the wg kernels' d and at d = 8
+RAGGED_WINDOWS = [(7, 3, 100, 16, 7), (7, 3, 100, 8, 7)]
 SWIN_VOLUMES = [(170, 150, 240), (150, 172, 270)]
 SWIN_TRAIN_CASES, SWIN_VAL_CASES = 6, 2
 # window forward launches per Swin forward: 4 stages x 2 blocks
 SWIN_WINDOW_LAUNCHES = 8
 # the card's published dense peaks (H100 SXM data sheet, 700 W)
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
+# its f32 rate outside the tensor cores: 67 TFLOP/s counts an FMA as two,
+# so 33.5e12 operations/s on the 128 FP32 lanes of each SM; the 16 SFU
+# lanes of each SM give an eighth of that in exponentials
+PEAK_F32_OPS = 67e12 / 2
+PEAK_SFU = PEAK_F32_OPS / 8
+# f32 operations per score besides its exponential, as the wg kernels do
+# them: forward 6 (bias add, mask compare, mask add, row max, the exponent's
+# FMA, row sum); backward 15 (those 6, the normalisation, the P o dP row
+# sum, dS's subtract and multiply, the dbias add, P's bf16 rounding (half
+# an instruction a score) and dS's hi / lo split: hi's rounding (a half),
+# widening hi, the subtraction, lo's rounding (a half))
+SCORE_OPS = {False: 6, True: 15}
+# the spin ahead of a held timing: ~1 ms at the H100's 1.98 GHz, more than
+# the host takes to enqueue any timed call of the window phase
+HOLD_CYCLES = 2_000_000
 
 
 def fail(msg):
@@ -157,16 +188,40 @@ def _counts():
 
 
 def _reset_launches():
+    from transoar_tpu_torch.ops.kernels import window_attention as wa
+
     for fn in _wrappers().values():
         fn.launches = 0
     pc = _kernels()
-    for variants in (pc.variant_launches, pc.dw_variant_launches):
+    for variants in (pc.variant_launches, pc.dw_variant_launches,
+                     wa.variant_launches, wa.bwd_variant_launches):
         for v in variants:
             variants[v] = 0
 
 
-# the band conv's forward and dw kernel launches by variant, per main path
+# the band conv's forward and dw kernel launches by variant, and the window
+# attention's forward and backward ones, per main path
 VARIANTS_BY_PATH, DW_VARIANTS_BY_PATH = {}, {}
+WINDOW_VARIANTS_BY_PATH, WINDOW_BWD_VARIANTS_BY_PATH = {}, {}
+
+
+def _check_window_variants(path, counts):
+    """Every window attention launch of the path took the wg kernels (the
+    flagship's paths launch none); keeps the counts in
+    WINDOW_(BWD_)VARIANTS_BY_PATH."""
+    from transoar_tpu_torch.ops.kernels import window_attention as wa
+
+    for table, launched, by_path, variants in (
+            ("forward", counts["fused_window_attention"],
+             WINDOW_VARIANTS_BY_PATH, wa.variant_launches),
+            ("backward", counts["fused_window_attention_bwd"],
+             WINDOW_BWD_VARIANTS_BY_PATH, wa.bwd_variant_launches)):
+        got = {k: v for k, v in variants.items() if v}
+        want = {"wg": launched} if launched else {}
+        if got != want:
+            fail(f"{path}: window attention {table} kernel variants {got}, "
+                 f"want {want}")
+        by_path[path] = got
 
 
 def _check_variants(path, counts):
@@ -203,6 +258,7 @@ def phase_device():
 
 
 def phase_build():
+    from transoar_tpu_torch.ops.kernels import window_attention as wa
     from transoar_tpu_torch.ops.kernels._build import build_log, load_library
 
     names = ("packed_conv", "window_attention")
@@ -223,15 +279,28 @@ def phase_build():
         print(f"build: band conv {'dw' if dw else 'forward'} kernels "
               f"(registers, shared memory, spill bytes per thread; the wide "
               f"dw kernel's ring at Cin 144) {json.dumps(attrs)}", flush=True)
+    attrs = {n: wa.kernel_attrs(n)
+             for n in ("fwd_mma", "bwd_mma", "fwd_wg", "bwd_wg")}
+    serial = [line.strip() for line in build_log("window_attention")
+              .splitlines() if any(c in line for c in ("C7512", "C7518",
+                                                       "C7520"))]
+    print(f"build: window attention bf16 kernels (registers, shared memory, "
+          f"spill bytes per thread) {json.dumps(attrs)}; wgmma "
+          f"serialisation notes {serial}", flush=True)
 
 
-def _median_ms(fn, runs=20, warmup=3):
+def _median_ms(fn, runs=20, warmup=3, hold=False):
+    """Median event time of ``fn`` in ms. With ``hold`` a spin kernel of
+    HOLD_CYCLES runs ahead of the start event, so the host's enqueue of
+    ``fn`` overlaps it and the events time the device's work alone."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -421,6 +490,16 @@ def _window_inputs(gen, B, H, N, d, region, dtype=torch.bfloat16):
     return q, k, v, bias, region, do.transpose(1, 2)
 
 
+def _alu_floor(B, H, N, backward):
+    """ms of the scores' elementwise work at the card's peaks: their
+    exponentials over the SFU rate or their other f32 operations
+    (SCORE_OPS) over the FP32 rate, whichever is larger (the two units run
+    side by side)."""
+    scores = B * H * N * N
+    return 1e3 * max(scores / PEAK_SFU,
+                     SCORE_OPS[backward] * scores / PEAK_F32_OPS)
+
+
 def _window_work(B, H, N, d, nW, backward, itemsize=2):
     """(flops, bytes) of the forward (2 products) or the backward (5), each
     input read once and each output written once."""
@@ -446,31 +525,45 @@ def _check_window_case(wa, q, k, v, bias, region, do, tol, dbias_tol,
                        label):
     """Forward and backward against the plain versions, o, dq, dk and dv
     within ``tol`` = (rtol, atol), dbias within rel-L2 ``dbias_tol`` and the
-    same bits on a rerun; returns the two max abs errors and dbias's
-    rel-L2."""
+    same bits on a rerun: the kernels the wrappers pick and, for bf16, the
+    generic kernels. Returns the picked kernels' two max abs errors and
+    dbias's rel-L2."""
     rtol, atol = tol
-    o = wa.fused_window_attention(q, k, v, bias, region)
+    kernels = [("", wa.fused_window_attention,
+                wa.fused_window_attention_bwd)]
+    if q.dtype == torch.bfloat16 and wa._window_variant(q) != "generic":
+        kernels.append((" generic",
+                        lambda *a: wa._launch_fwd(*a, "generic"),
+                        lambda *a: wa._launch_bwd(*a, "generic")))
     ref = wa.window_attention_reference(q, k, v, bias, region)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(o, ref, rtol=rtol, atol=atol,
-                               msg=lambda m: f"{label} forward: {m}")
-    fwd_err = (o.float() - ref.float()).abs().max().item()
-    del o, ref
-    grads = wa.fused_window_attention_bwd(q, k, v, bias, region, do)
-    again = wa.fused_window_attention_bwd(q, k, v, bias, region, do)
-    ref = wa.window_attention_bwd_reference(q, k, v, bias, region, do)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), grads[:3], ref[:3]):
-        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
-                                   msg=lambda m, n=name: f"{label} {n}: {m}")
-    rel = _rel_l2(grads[3], ref[3])
-    if rel > dbias_tol:
-        fail(f"window attention {label} dbias: rel-L2 {rel:.2e}")
-    if not torch.equal(grads[3], again[3]):
-        fail(f"window attention {label}: dbias is not deterministic")
-    bwd_err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(grads, ref))
-    return fwd_err, bwd_err, rel
+    bref = wa.window_attention_bwd_reference(q, k, v, bias, region, do)
+    errs = []
+    for name, fwd, bwd in kernels:
+        o = fwd(q, k, v, bias, region)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            o, ref, rtol=rtol, atol=atol,
+            msg=lambda m, n=name: f"{label}{n} forward: {m}")
+        fwd_err = (o.float() - ref.float()).abs().max().item()
+        del o
+        grads = bwd(q, k, v, bias, region, do)
+        again = bwd(q, k, v, bias, region, do)
+        torch.cuda.synchronize()
+        for gname, a, b in zip(("dq", "dk", "dv"), grads[:3], bref[:3]):
+            torch.testing.assert_close(
+                a, b, rtol=rtol, atol=atol,
+                msg=lambda m, n=f"{name} {gname}": f"{label}{n}: {m}")
+        rel = _rel_l2(grads[3], bref[3])
+        if rel > dbias_tol:
+            fail(f"window attention {label}{name} dbias: rel-L2 {rel:.2e}")
+        if not torch.equal(grads[3], again[3]):
+            fail(f"window attention {label}{name}: dbias is not "
+                 f"deterministic")
+        bwd_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(grads, bref))
+        errs.append((fwd_err, bwd_err, rel))
+        del grads, again
+    return errs[0]
 
 
 def phase_window_kernels():
@@ -510,48 +603,68 @@ def phase_window_kernels():
                 wa.fused_window_attention(q, k, v, bias, region)
                 wa.fused_window_attention_bwd(q, k, v, bias, region, do)
 
-            row = dict(base, max_abs_err=fwd_err)
+            row = dict(base, variant=wa._window_variant(q),
+                       max_abs_err=fwd_err)
             work = _window_work(B, H, N, d, region.shape[0], False)
             row["bound_ms"], row["bound_by"] = _bound(*work)
             row["ms"] = _median_ms(
+                lambda: wa._launch_fwd(q, k, v, bias, region), hold=True)
+            row["generic_ms"] = _median_ms(
+                lambda: wa._launch_fwd(q, k, v, bias, region, "generic"),
+                hold=True)
+            row["call_ms"] = _median_ms(
                 lambda: wa.fused_window_attention(q, k, v, bias, region))
             _rates(row, work[0])
             row["plain_ms"] = _median_ms(
-                lambda: wa.window_attention_reference(q, k, v, bias, region))
+                lambda: wa.window_attention_reference(q, k, v, bias, region),
+                hold=True)
             row["library_ms"] = _median_ms(
                 lambda: F.scaled_dot_product_attention(
-                    sq, sk, sv, attn_mask=mask, scale=1.0))
+                    sq, sk, sv, attn_mask=mask, scale=1.0), hold=True)
             fwd_rows.append(row)
-            print(f"window kernel: fused_window_attention {json.dumps(row)}",
-                  flush=True)
-            row = dict(base, max_abs_err=bwd_err, dbias_rel_l2=rel,
+            shown = dict(row, alu_floor_ms=_alu_floor(B, H, N, False))
+            print(f"window kernel: fused_window_attention "
+                  f"{json.dumps(shown)}", flush=True)
+            row = dict(base, variant=wa._window_variant(q),
+                       max_abs_err=bwd_err, dbias_rel_l2=rel,
                        dbias_bit_identical_rerun=True)
             work = _window_work(B, H, N, d, region.shape[0], True)
             row["bound_ms"], row["bound_by"] = _bound(*work)
-            row["ms"] = _median_ms(lambda: wa.fused_window_attention_bwd(
+            row["ms"] = _median_ms(lambda: wa._launch_bwd(
+                q, k, v, bias, region, do), hold=True)
+            row["generic_ms"] = _median_ms(lambda: wa._launch_bwd(
+                q, k, v, bias, region, do, "generic"), hold=True)
+            row["call_ms"] = _median_ms(lambda: wa.fused_window_attention_bwd(
                 q, k, v, bias, region, do))
             _rates(row, work[0])
             row["plain_ms"] = _median_ms(
                 lambda: wa.window_attention_bwd_reference(
-                    q, k, v, bias, region, do))
+                    q, k, v, bias, region, do), hold=True)
             row["library_ms"] = _median_ms(lambda: torch.autograd.grad(
-                sdpa_out, leaves, do, retain_graph=True))
-            row["fwd_bwd_ms"] = _median_ms(kernels_fwd_bwd)
-            row["library_fwd_bwd_ms"] = _median_ms(sdpa_fwd_bwd)
+                sdpa_out, leaves, do, retain_graph=True), hold=True)
+            row["fwd_bwd_ms"] = _median_ms(kernels_fwd_bwd, hold=True)
+            row["library_fwd_bwd_ms"] = _median_ms(sdpa_fwd_bwd, hold=True)
             bwd_rows.append(row)
+            shown = dict(row, alu_floor_ms=_alu_floor(B, H, N, True))
             print(f"window kernel: fused_window_attention_bwd "
-                  f"{json.dumps(row)}", flush=True)
+                  f"{json.dumps(shown)}", flush=True)
             del q, k, v, do, sq, sk, sv, mask, leaves, sdpa_out
             torch.cuda.empty_cache()
 
-    B, H, N, d, nW = RAGGED_WINDOWS
-    region = torch.randint(0, 4, (nW, N), generator=gen,
-                           device="cuda").float()
-    errs = _check_window_case(wa, *_window_inputs(gen, B, H, N, d, region),
-                              (1.6e-2, 1e-2), 1e-4, "ragged")
-    fwd_rows.append({"shape": [B, H, N, d], "max_abs_err": errs[0]})
-    bwd_rows.append({"shape": [B, H, N, d], "max_abs_err": errs[1],
-                     "dbias_rel_l2": errs[2]})
+    ragged = []
+    for B, H, N, d, nW in RAGGED_WINDOWS:
+        region = torch.randint(0, 4, (nW, N), generator=gen,
+                               device="cuda").float()
+        inputs = _window_inputs(gen, B, H, N, d, region)
+        errs = _check_window_case(wa, *inputs, (1.6e-2, 1e-2), 1e-4,
+                                  f"ragged d = {d}")
+        variant = wa._window_variant(inputs[0])
+        fwd_rows.append({"shape": [B, H, N, d], "variant": variant,
+                         "max_abs_err": errs[0]})
+        bwd_rows.append({"shape": [B, H, N, d], "variant": variant,
+                         "max_abs_err": errs[1], "dbias_rel_l2": errs[2]})
+        ragged.append(f"{[B, H, N, d]} ({variant}) forward {errs[0]:.3g} "
+                      f"backward {errs[1]:.3g}")
     # the f32 variants (CUDA cores) at stage 4's shifted windows, batch 2
     padded, H = SWIN_STAGES[2]
     region = _regions(padded, (5, 5, 5), (2, 2, 2), torch.device("cuda"))
@@ -559,9 +672,8 @@ def phase_window_kernels():
         wa, *_window_inputs(gen, BATCH * region.shape[0], H, SWIN_N, SWIN_D,
                             region, torch.float32), (1e-5, 1e-5), 1e-5,
         "f32")
-    print(f"window kernel: ragged {list(RAGGED_WINDOWS[:4])} bf16 max abs "
-          f"err forward {errs[0]:.3g} backward {errs[1]:.3g}; f32 variants "
-          f"at stage 4 max abs err forward {f32[0]:.3g} backward "
+    print(f"window kernel: ragged bf16 max abs err {'; '.join(ragged)}; f32 "
+          f"variants at stage 4 max abs err forward {f32[0]:.3g} backward "
           f"{f32[1]:.3g}, dbias rel-L2 {f32[2]:.2e}", flush=True)
     return fwd_rows, bwd_rows
 
@@ -792,6 +904,7 @@ def phase_serving():
     if got != want:
         fail(f"serving launched {got}, want {want}")
     _check_variants("serving", counts)
+    _check_window_variants("serving", counts)
     _serving_line("serving", cfg, records, peak, counts)
     return counts
 
@@ -808,6 +921,7 @@ def phase_swin_serving():
     if got != want:
         fail(f"Swin serving launched {got}, want {want}")
     _check_variants("swin_serving", counts)
+    _check_window_variants("swin_serving", counts)
     _serving_line("swin serving", cfg, records, peak, counts)
     return counts
 
@@ -909,6 +1023,7 @@ def phase_training():
     if got != want:
         fail(f"training launched {got}, want {want}")
     _check_variants("training", counts)
+    _check_window_variants("training", counts)
     result = _training_result(trainer, EPOCHS, counts, peak, data_s, run_s)
     print(f"training: foc_dec_amos 256x256x128 batch {BATCH} bf16, "
           f"{json.dumps(result)}", flush=True)
@@ -934,6 +1049,7 @@ def phase_swin_training():
     if got != want:
         fail(f"Swin training launched {got}, want {want}")
     _check_variants("swin_training", counts)
+    _check_window_variants("swin_training", counts)
     if peak >= 40 * 2 ** 30:
         fail(f"Swin training peak memory {peak / 2 ** 30:.2f} GiB >= 40")
     result = _training_result(trainer, 1, counts, peak, data_s, run_s)
@@ -947,8 +1063,9 @@ def _entry(name, replaces, launches, rows, path_rows,
            source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
     shapes, one launch each."""
-    summed = [k for k in ("ms", "generic_ms", "plain_ms", "bound_ms",
-                          "library_ms", "fwd_bwd_ms", "library_fwd_bwd_ms")
+    summed = [k for k in ("ms", "generic_ms", "call_ms", "plain_ms",
+                          "bound_ms", "library_ms", "fwd_bwd_ms",
+                          "library_fwd_bwd_ms")
               if k in path_rows[0]]
     return {
         "name": name, "route": "cuda", "source": source,
@@ -1010,6 +1127,11 @@ def main():
     # conv2d_3x3): its launches on each path by variant; the same for dw
     kernels[0]["forward_kernel_variants_by_path"] = VARIANTS_BY_PATH
     kernels[2]["dw_kernel_variants_by_path"] = DW_VARIANTS_BY_PATH
+    # the window attention's forward and backward kernel launches by
+    # variant on each path
+    kernels[3]["window_kernel_variants_by_path"] = WINDOW_VARIANTS_BY_PATH
+    kernels[4]["window_kernel_variants_by_path"] = \
+        WINDOW_BWD_VARIANTS_BY_PATH
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

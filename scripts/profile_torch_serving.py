@@ -56,7 +56,7 @@ from transoar_tpu_torch.utils.weights import random_state_dict  # noqa: E402
 
 # the kernels of csrc/packed_conv.cu and csrc/window_attention.cu, by name
 PORT_KERNEL = re.compile(r"::((?:(?:conv|dw)_(?:wide|fold|mma|fma)|dw_reduce"
-                         r"|(?:fwd|bwd)_(?:mma|fma)|dbias_reduce)(?:<\d+>)?)\(")
+                         r"|(?:fwd|bwd)_(?:mma|fma|wg)|dbias_reduce)(?:<\d+>)?)\(")
 CONFIGS = {"foc_dec_amos": flagship_config,
            "swin_fpn_visceral": swin_fpn_config}
 

@@ -10,7 +10,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SCRIPTS = ["chip_smoke.py", "scripts/profile_torch_serving.py"]
+SCRIPTS = ["chip_smoke.py", "scripts/profile_torch_serving.py",
+           "scripts/probe_window_kernels.py"]
 
 SCRIPT = """
 import importlib, importlib.util, pkgutil, sys

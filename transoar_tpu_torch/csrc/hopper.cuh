@@ -1,7 +1,10 @@
 // Hopper primitives shared by the port's kernels: warpgroup MMA (wgmma),
-// shared-memory matrix descriptors, mbarriers, TMA and bulk copies. sm_90a.
+// shared-memory matrix descriptors, mbarriers, TMA and bulk copies, and the
+// host's tensor-map encoder. sm_90a.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (header only)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -182,7 +185,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // d += a * b on wgmma m64nNk16 (bf16 in, f32 accumulate), one
-// specialisation per N the kernels take. B by descriptor; A by descriptor
+// specialisation per N the kernels take (16 and 128: the window attention's
+// d = 16 products and its 128-key score tile). B by descriptor; A by descriptor
 // (ss) or from registers in the mma.sync m16n8k16 A fragment order, one
 // 16-row slab per warp (rs). TA / TB are wgmma's transpose immediates: 0
 // for a K-major operand, 1 for an MN-major one (A from registers is always
@@ -379,6 +383,74 @@ struct Wgmma<144> {
   }
 };
 
+template <>
+struct Wgmma<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(int scale_d, float (&d)[8], uint64_t adesc,
+                                            uint64_t bdesc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(adesc), "l"(bdesc), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+
+  template <int TB>
+  static __device__ __forceinline__ void rs(int scale_d, float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t bdesc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+          "r"(scale_d), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(int scale_d, float (&d)[64], uint64_t adesc,
+                                            uint64_t bdesc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(adesc), "l"(bdesc), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t adesc,
                                          uint64_t bdesc, int scale_d = 1) {
@@ -390,6 +462,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t bdesc, int scale_d = 1) {
   Wgmma<N>::template rs<TB>(scale_d, d, a, bdesc);
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its address
+// is looked up once through the runtime, so a library links against
+// nothing but the CUDA runtime. Host code; nullptr where the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                        cudaEnableDefault,
+                                        &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 }  // namespace hopper

@@ -1473,34 +1473,10 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its address
-// is looked up once through the runtime, so the library links against
-// nothing but the CUDA runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                        cudaEnableDefault,
-                                        &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 template <int N>
 cudaError_t launch_wide(const void* x, const void* wk, void* y, int BD, int H,
                         int W, int Cin, cudaStream_t s) {
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   // x as [BD][H][W][Cin / 8][8]; the box is one 8-channel group of the
   // (T_H + 2) x (T_W + 2) patch
@@ -1561,7 +1537,7 @@ cudaError_t launch_fold(const void* x, const void* wf, void* y, int BD, int H,
 bool encode_group_map(CUtensorMap* map, const void* t, int BD, int H, int W,
                       int C, int e, int box_w, int box_h) {
   const int groups = C / e;
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[5] = {(cuuint64_t)e, (cuuint64_t)W,
                               (cuuint64_t)groups, (cuuint64_t)H,
@@ -1606,7 +1582,7 @@ template <int N>
 cudaError_t launch_dw_fold(const void* x, const void* dy, float* part,
                            int BD, int H, int W, int Cin, const DwGrid& g,
                            cudaStream_t s) {
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   // x as [BD][H][W * Cin / 8][8]: a box is DWF2_TH + 2 raw rows of DWF2_RW
   // pixels (16-byte runs, since W * Cin % 8 == 0)

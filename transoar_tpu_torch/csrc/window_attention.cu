@@ -23,7 +23,79 @@
 // score tensor (1.25 GB in f32 at stage 2, batch 1) and the [nW, N, N] mask
 // never reach device memory: both live in registers, as on the TPU.
 //
-// What the design does about it:
+// What the design does about it: three bf16 kernels for each direction's one
+// function, chosen by shape in the wrapper (ops/kernels/window_attention.py:
+// _window_variant): ``wg`` (``fwd_wg`` / ``bwd_wg``: d = 16, N <= 128, every
+// Swin launch of the SwinFPN), ``generic`` (``fwd_mma`` / ``bwd_mma``: every
+// other bf16 shape) and ``fma`` (f32).
+//
+// wg, the Hopper design. At d = 16 the products are tiny (S is one k16
+// step) and the work per score is elementwise: the exponential (the SFU's
+// 16 a clock per SM) and ~6 f32 operations in the forward, ~15 in the
+// backward, against 128 FP32 lanes; at stage 2 that floor is 0.15 ms forward
+// and 0.28 ms backward, near the bytes bound (0.19 / 0.33 ms). What bounds
+// the kernels as built, measured on an H100 (700 W) by timing copies of
+// this file with one part removed (scripts/probe_window_kernels.py, stage
+// 2): not that arithmetic, but the copies. The forward's copy skeleton
+// (loads, bias, stores) takes 80-94% of its 0.51-0.65 ms, ~1.3 TB/s on rows
+// of 32 bytes at a stride; a 2-stage ring is 10-16% slower than 3, and the
+// exponentials cost 2-9%. The backward's skeleton takes 55-60% of its
+// 1.26-1.46 ms; the exponentials, the mask and the hi / lo staging cost
+// 3-10% each, the dv and dk products 6-12%: the rest is the serial chain
+// of one window at a time per SM. Of the skeletons, the outputs' stores
+// take ~0.1 ms (forward) and ~0.3 ms (backward): the memory system gives
+// ~1.4-1.6 TB/s on 32-byte rows at a stride, loads and stores alike, and
+// 16-byte stores after a quad shuffle were slower (1.57-1.62 ms backward).
+// - Asynchronous copies: a ring of 3 stages, each one window's q, k, v (and
+//   do) as four 4 KB TMA boxes ([128 tokens][16] bf16 in the 32-byte
+//   swizzle: rows 125-127 come zero-filled, and the tensor maps carry the
+//   views' real strides, so k and v are read in place from the qkv
+//   projection's [B_, N, 3, H, d] output and q and do from [B_, N, H, d]
+//   memory) plus the window's labels (one bulk copy of the wrapper's [nW,
+//   128] padded rows), tracked by one mbarrier per stage. Thread 0 fills the
+//   ring. In the forward it also refills: a stage one window after all
+//   eight warps released it, so it never waits on a late warp. In the
+//   backward the last warp to release a stage refills it at once (a counter
+//   in shared memory), a window earlier: 3-7% off at stage 2; the forward
+//   lost 8-26% that way, and spilled (the same probe script). Prefetching
+//   the windows beyond the ring into L2 (cp.async.bulk.prefetch.tensor)
+//   gained nothing in either. One thread, not a producer warp: in the band
+//   conv's conv_wide a producer warp capped ptxas's registers and made it
+//   spill.
+// - A grid that fills the card: the host assigns each block one head and a
+//   run of windows, sized so that heads x runs = the SMs x the blocks each
+//   SM holds (``_wg_split`` in the wrapper): for the backward 132 blocks at
+//   stages 2-4 and 120 at stage 5, for the forward (two a SM) 264, but 252
+//   at stage 4. The head's f32 bias is staged once per block, in fragment
+//   order (each thread's 64 entries as 16 float4s, conflict-free), with -inf
+//   past N so that padded keys need no test.
+// - Tensor cores through wgmma, two consumer warpgroups each taking 64 query
+//   rows: S = q k^T (and dP = do v^T) on one m64n128k16 each, both operands
+//   K-major from the TMA tiles. The d = 16 products run on wgmma m64n16k16
+//   (``Wgmma<16>``): o = P v and dq = dS k take P and dS as A fragments from
+//   the registers that computed them (RS); dv = P^T do and dk = dS^T q read
+//   A MN-major from P and dS staged in shared memory as [key / 8][query][8].
+//   mma.sync is the generic kernels' route for these: wgmma needs no
+//   ldmatrix and no per-warp loop over n8 tiles; no measurement chose
+//   between the two for these products alone (the kernels are timed whole:
+//   ``ms`` against ``generic_ms`` in chip_smoke.py).
+//   ``debug_wgmma_tile`` holds one tile of each form against a CPU product.
+// - The backward computes dP once and turns it into dS in place, keeps the
+//   f32 softmax, feeds dS to dq and dk as a bf16 hi + lo pair, and keeps the
+//   dbias partial in registers (each thread owns the same 64 entries in
+//   every window); the budget: S / P 64 + dP / dS 64 + dbias 64 f32 a
+//   thread, then hi + lo 64 for dq's in-flight wgmmas once P has died.
+//   Shared memory: bias 64 KB, ring 3 x 16.5 KB, P, hi and lo 3 x 32 KB =
+//   210 KB, one block of 256 threads per SM. Partials are added by
+//   ``dbias_reduce`` in block order: no atomics, the same bits every run.
+// - The forward is the same pipeline without dP and dS (104 KB, two blocks
+//   per SM); it normalises o, not P.
+// Left for later work: the copies (a layout with each window-head's rows
+// contiguous, which the strided views of the projection rule out; a TMA
+// store epilogue); a second window in flight per SM in the backward, which
+// its registers (246 a thread) do not allow yet.
+//
+// generic and f32, the first design:
 // - One block takes one head and loops over a run of windows (the loop takes
 //   the place of the TPU's sequential window grid axis). The head's f32 bias
 //   (62.5 KB) is staged in shared memory once per block, not re-read per
@@ -53,14 +125,15 @@
 // - f32 (``fwd_fma`` / ``bwd_fma``): the same function on the CUDA cores, one
 //   thread per query row (and, for dk, dv and dbias, one thread per key),
 //   for checks against f32 references.
-// Limits: N <= 128, d a multiple of 8 up to 64.
-// Left for later work: cp.async or TMA prefetch of the next window while
-// this one computes, wgmma, packing two windows into one 128-row tile.
+// Limits: N <= 128, d a multiple of 8 up to 64; wg d = 16.
 
+#include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -555,6 +628,547 @@ bwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, d = 16: wgmma fed by a TMA ring (fwd_wg / bwd_wg)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_D = 16;                 // the head width these kernels take
+constexpr int WG_THREADS = 256;          // two consumer warpgroups
+constexpr int TILE = NP * WG_D * 2;      // one operand of one window: 4 KB
+constexpr int LABELS = NP * 4;           // one window's region labels, f32
+constexpr int BIAS_FRAG = NP * NP * 4;   // a head's bias, fragment-major f32
+constexpr int STAGED = NP * NP * 2;      // P, dS hi or dS lo in bf16
+constexpr int FWD_STAGES = 3, BWD_STAGES = 3;
+constexpr float L2E = 1.4426950408889634f;
+
+// Shared memory of a wg kernel: the bias, a ring of OPS tiles and the labels
+// per stage, STAGING staged [NP, NP] bf16 matrices, then per stage an
+// mbarrier for its loads and one (forward) or a counter (backward) for its
+// release.
+template <int OPS, int STAGES, int STAGING>
+struct WgSmem {
+  static constexpr int TILES = BIAS_FRAG;                  // [stage][op]
+  static constexpr int LAB = TILES + STAGES * OPS * TILE;  // [stage][NP]
+  static constexpr int STG = LAB + STAGES * LABELS;        // [staging]
+  static constexpr int BARS = STG + STAGING * STAGED;  // full, release
+  static constexpr int BYTES = BARS + 2 * STAGES * 8;
+};
+using FwdWg = WgSmem<3, FWD_STAGES, 0>;
+using BwdWg = WgSmem<4, BWD_STAGES, 3>;
+static_assert(2 * (FwdWg::BYTES + 1024) <= 233472, "two forward blocks");
+static_assert(BwdWg::BYTES <= 232448, "fits the SM's shared memory");
+
+// A tile as TMA writes it: [token][16] bf16, 32-byte rows in the 32-byte
+// swizzle. Read K-major (K = d: q and k of S = q k^T, do and v of dP = do
+// v^T) its 8-row atoms lie 256 bytes apart (LBO is unused); read MN-major
+// (K = token: v, k, do, q as B of o, dq, dv, dk) a k16 step is 512 bytes
+// and an 8-token atom 256 (one 16-wide block in N, so LBO is unused).
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr) {
+  return hopper::desc(addr, 16, 256) | (3ull << 62);
+}
+
+__device__ __forceinline__ uint64_t mdesc(uint32_t addr) {
+  return hopper::desc_mn(addr, 256, TILE, 32);
+}
+
+// A staged P or dS, [key / 8][query][8] bf16 (no swizzle), read MN-major as
+// A = P^T (M = keys, K = queries): core matrices of 8 queries x 8 keys, 128
+// bytes apart in K and 2048 in M.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr) {
+  return hopper::desc_mn(addr, 128, NP * 16, 0);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int R>
+__device__ __forceinline__ void fence_u32(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+__device__ __forceinline__ void st_u32(uint8_t* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+// bias[h] -> bs as float4 [warpgroup][n8 tile j][thread t of the
+// warpgroup]: the four entries thread t adds to its scores in tile j (rows
+// ra, rb = 16 (t / 32) + t % 32 / 4 (+ 8) of the warpgroup's 64, keys 8 j +
+// 2 (t % 4) + {0, 1}). Keys past N get -inf (probability 0), rows past N 0.
+// Each thread reads its own 16 bytes: no bank conflicts.
+__device__ void stage_bias_frag(float4* bs, const float* __restrict__ bias_h,
+                                int N) {
+  for (int i = threadIdx.x; i < 2 * 16 * 128; i += blockDim.x) {
+    const int t = i % 128, j = (i / 128) % 16, g = i / 2048;
+    const int ra = 64 * g + 16 * (t / 32) + (t % 32) / 4, rb = ra + 8;
+    const int c = 8 * j + 2 * (t % 4);
+    auto at = [&](int r, int cc) {
+      return cc >= N ? -INFINITY : r < N ? bias_h[r * N + cc] : 0.f;
+    };
+    bs[i] = make_float4(at(ra, c), at(ra, c + 1), at(rb, c), at(rb, c + 1));
+  }
+}
+
+// The coordinate at position ``pos`` (1-3) of a tensor map whose outer axes
+// were sorted by stride: ``code`` holds 2 bits per position, 0 = token, 1 =
+// head, 2 = window.
+__device__ __forceinline__ int coord(int code, int pos, int h, int b) {
+  const int which = (code >> (2 * (pos - 1))) & 3;
+  return which == 1 ? h : which == 2 ? b : 0;
+}
+
+// Window b's OPS tiles (q, k, v and, for the backward, do) of head h by TMA,
+// rows past N zero-filled, and its region labels (one bulk copy of a row of
+// the [nW, NP] padded labels) into one stage; all complete on ``bar``.
+template <int OPS>
+__device__ __forceinline__ void wg_load(uint8_t* tiles, float* labels,
+                                        uint64_t* bar, const CUtensorMap* m0,
+                                        const CUtensorMap* m1,
+                                        const CUtensorMap* m2,
+                                        const CUtensorMap* m3, int codes,
+                                        const float* __restrict__ region,
+                                        int b, int h, int nW) {
+  hopper::mbar_expect_tx(bar, OPS * TILE + LABELS);
+  const CUtensorMap* maps[4] = {m0, m1, m2, m3};
+#pragma unroll
+  for (int op = 0; op < OPS; ++op) {
+    const int code = codes >> (6 * op);
+    hopper::tma_load_4d(tiles + op * TILE, maps[op], bar, 0,
+                        coord(code, 1, h, b), coord(code, 2, h, b),
+                        coord(code, 3, h, b));
+  }
+  hopper::bulk_load(labels, region + (size_t)(b % nW) * NP, LABELS, bar);
+}
+
+// S = q k^T (or dP = do v^T) for this warpgroup's 64 query rows: one
+// m64n128k16 wgmma, both operands K-major.
+__device__ __forceinline__ void scores(float (&sc)[64], uint32_t a,
+                                       uint32_t b) {
+  hopper::fence_regs(sc);
+  hopper::wgmma_fence();
+  hopper::wgmma_ss<128>(sc, kdesc(a), kdesc(b), 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+}
+
+// The row softmax of the score tile in place, unnormalised, in two passes.
+// softmax_max adds the bias (fragment-major, -inf past N) and the -100 mask
+// where the labels of row and key differ, and returns -max * log2(e) of the
+// two rows. C fragment: sc[4 j + e] at row ra (e < 2) or rb, key 8 j + 2 (t
+// % 4) + e % 2.
+__device__ __forceinline__ void softmax_max(float (&sc)[64], const float4* bs,
+                                            const float* lab, int g, int t,
+                                            int ra, int rb, float& na,
+                                            float& nb) {
+  const float la = lab[ra], lb = lab[rb];
+  float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float4 bv = bs[(16 * g + j) * 128 + t];
+    const float2 lc =
+        *reinterpret_cast<const float2*>(lab + 8 * j + 2 * (t % 4));
+    sc[4 * j] += bv.x + (la != lc.x ? MASK : 0.f);
+    sc[4 * j + 1] += bv.y + (la != lc.y ? MASK : 0.f);
+    sc[4 * j + 2] += bv.z + (lb != lc.x ? MASK : 0.f);
+    sc[4 * j + 3] += bv.w + (lb != lc.y ? MASK : 0.f);
+    ma = fmaxf(ma, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mb = fmaxf(mb, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  na = -quad_max(ma) * L2E;  // key 0 is valid: the maxima are finite
+  nb = -quad_max(mb) * L2E;
+}
+
+// softmax_exp: exp(s - row max) in place; returns the two rows' sums, and
+// with PACK also P in bf16 as the A fragments of k16 step kk = keys 16 kk ..
+// (pa[kk][0..3]: row ra, rb at keys + 0..7, then ra, rb at + 8..15).
+template <bool PACK>
+__device__ __forceinline__ void softmax_exp(float (&sc)[64], float na,
+                                            float nb, float& sa, float& sb,
+                                            uint32_t (&pa)[8][4]) {
+  sa = 0.f;
+  sb = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], L2E, na));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], L2E, na));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], L2E, nb));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], L2E, nb));
+    sa += sc[4 * j] + sc[4 * j + 1];
+    sb += sc[4 * j + 2] + sc[4 * j + 3];
+    if (PACK) {  // the tile's bf16 A fragments, as soon as they exist
+      pa[j / 2][2 * (j % 2)] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+  }
+  sa = quad_sum(sa);
+  sb = quad_sum(sb);
+}
+
+// An m64n16 accumulator (rows ra, rb; columns 8 j + c0 + {0, 1}) times
+// (fa, fb) -> dst rows below N, bf16.
+__device__ __forceinline__ void store16(__nv_bfloat16* __restrict__ dst,
+                                        Str s, const float (&acc)[8], int b,
+                                        int h, int ra, int rb, int c0, int N,
+                                        float fa = 1.f, float fb = 1.f) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    const float f = half ? fb : fa;
+    if (r >= N) continue;
+    __nv_bfloat16* row = dst + b * s.b + h * s.h + r * s.n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half] * f,
+                                acc[4 * j + 2 * half + 1] * f);
+  }
+}
+
+// Forward. One block = one head h and a run of ``wpb`` windows from b0 (the
+// static assignment the host computes, sized to fill the card); the head's
+// bias is staged once. Thread 0 also produces: it fills the ring and
+// refills a stage one window after all eight warps released it. Warpgroup
+// g takes query rows 64 g .. 64 g + 63: S on one m64n128k16 wgmma, the
+// softmax in registers, o = P v on eight m64n16k16 wgmmas with P as the A
+// fragments straight from the score registers, normalised at the store.
+__global__ void __launch_bounds__(WG_THREADS, 2)
+fwd_wg(const __grid_constant__ CUtensorMap qmap,
+       const __grid_constant__ CUtensorMap kmap,
+       const __grid_constant__ CUtensorMap vmap,
+       const float* __restrict__ bias, const float* __restrict__ region,
+       __nv_bfloat16* __restrict__ o, Str so, int codes, int B, int H, int N,
+       int nW, int wpb) {
+  using L = FwdWg;
+  constexpr int S = FWD_STAGES;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* smem = wg_smem;
+  float4* bs = reinterpret_cast<float4*>(smem);
+  uint8_t* tiles = smem + L::TILES;
+  float* labels = reinterpret_cast<float*>(smem + L::LAB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + S;
+
+  const int h = blockIdx.x % H, b0 = (blockIdx.x / H) * wpb;
+  const int n = min(B - b0, wpb);
+  const int t = threadIdx.x % 128, g = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int ra = 64 * g + 16 * (t / 32) + lane / 4, rb = ra + 8;
+  const int c0 = 2 * (lane % 4);
+
+  auto load = [&](int i) {
+    const int s = i % S;
+    wg_load<3>(tiles + s * 3 * TILE, labels + s * NP, &full[s], &qmap, &kmap,
+               &vmap, &vmap, codes, region, b0 + i, h, nW);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], WG_THREADS / 32);  // one per warp
+    }
+    hopper::mbar_init_fence();
+    for (int i = 0; i < min(n, S); ++i) load(i);
+  }
+  stage_bias_frag(bs, bias + (size_t)h * N * N, N);
+  __syncthreads();
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % S;
+    hopper::mbar_wait(&full[s], (i / S) & 1);
+    const uint32_t qs = hopper::smem_u32(tiles + s * 3 * TILE);
+    const uint32_t ks = qs + TILE, vs = qs + 2 * TILE;
+
+    float sc[64];
+    scores(sc, qs + 64 * g * 32, ks);
+    float na, nb, sa, sb;
+    uint32_t pa[8][4];
+    softmax_max(sc, bs, labels + s * NP, g, t, ra, rb, na, nb);
+    softmax_exp<true>(sc, na, nb, sa, sb, pa);
+    float acc[8];
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      hopper::wgmma_rs<16, 1>(acc, pa[kk], mdesc(vs + 512 * kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    fence_u32(pa);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this window's tiles
+    store16(o, so, acc, b0 + i, h, ra, rb, c0, N, 1.f / sa, 1.f / sb);
+    if (threadIdx.x == 0 && i >= 1 && i - 1 + S < n) {
+      hopper::mbar_wait(&empty[(i - 1) % S], ((i - 1) / S) & 1);
+      load(i - 1 + S);
+    }
+    __syncwarp();  // wgmma is warp-aligned: lane 0 rejoins its warp
+  }
+}
+
+// Backward, on the forward's ring and block assignment, with do as a
+// fourth tile; the last warp to release a stage refills it. Per window,
+// warpgroup g (query rows 64 g ..): S on one m64n128k16 wgmma; P
+// recomputed in f32 registers (zero in rows past N); dP = do v^T on
+// another; D = rowsum(P o dP); P staged in bf16; dS = P o (dP - D) in place
+// of dP, added to this thread's entries of the block's dbias partial
+// (registers: the same entries in every window) and split into bf16 hi +
+// lo, which are staged and feed dq = dS k as register A fragments (sixteen
+// m64n16k16). Both warpgroups' P, hi and lo staged (a
+// barrier), warpgroup g takes keys 64 g ..: dv = P^T do and dk = dS^T q
+// (hi, then lo) on wgmma with A read MN-major from the staging. A barrier
+// before the next window's staging lets the other warpgroup's reads retire.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_wg(const __grid_constant__ CUtensorMap qmap,
+       const __grid_constant__ CUtensorMap kmap,
+       const __grid_constant__ CUtensorMap vmap,
+       const __grid_constant__ CUtensorMap dmap,
+       const float* __restrict__ bias, const float* __restrict__ region,
+       __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+       __nv_bfloat16* __restrict__ dv, float* __restrict__ part, Str sdq,
+       Str sdk, Str sdv, int codes, int B, int H, int N, int nW, int wpb) {
+  using L = BwdWg;
+  constexpr int S = BWD_STAGES;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* smem = wg_smem;
+  float4* bs = reinterpret_cast<float4*>(smem);
+  uint8_t* tiles = smem + L::TILES;
+  float* labels = reinterpret_cast<float*>(smem + L::LAB);
+  uint8_t* stg = smem + L::STG;  // P, dS hi, dS lo
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+
+  const int h = blockIdx.x % H, chunk = blockIdx.x / H, b0 = chunk * wpb;
+  const int n = min(B - b0, wpb);
+  const int t = threadIdx.x % 128, g = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int ra = 64 * g + 16 * (t / 32) + lane / 4, rb = ra + 8;
+  const int c0 = 2 * (lane % 4);
+  // this thread's staging word of rows ra (+ 8 rows: rb) in key group 0
+  uint8_t* my_stg = stg + ra * 16 + 2 * c0;
+
+  auto load = [&](int i) {
+    const int s = i % S;
+    wg_load<4>(tiles + s * 4 * TILE, labels + s * NP, &full[s], &qmap, &kmap,
+               &vmap, &dmap, codes, region, b0 + i, h, nW);
+  };
+  // warps that released each stage, counted up: the eighth refills it
+  uint32_t* released = reinterpret_cast<uint32_t*>(smem + L::BARS + 8 * S);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    hopper::mbar_init_fence();
+    for (int i = 0; i < min(n, S); ++i) load(i);
+  }
+  stage_bias_frag(bs, bias + (size_t)h * N * N, N);
+  __syncthreads();
+
+  float db[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) db[e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % S;
+    hopper::mbar_wait(&full[s], (i / S) & 1);
+    const uint32_t qs = hopper::smem_u32(tiles + s * 4 * TILE);
+    const uint32_t ks = qs + TILE, vs = qs + 2 * TILE, dos = qs + 3 * TILE;
+
+    // S, its softmax, then dP: dP's 64 registers are not live while the
+    // softmax runs (both tiles beside the dbias partial spilled)
+    float sc[64], dp[64];
+    scores(sc, qs + 64 * g * 32, ks);
+    float na, nb, sa, sb;
+    uint32_t unused[8][4];
+    softmax_max(sc, bs, labels + s * NP, g, t, ra, rb, na, nb);
+    softmax_exp<false>(sc, na, nb, sa, sb, unused);
+    scores(dp, dos + 64 * g * 32, vs);
+    const float ia = ra < N ? 1.f / sa : 0.f, ib = rb < N ? 1.f / sb : 0.f;
+    float Da = 0.f, Db = 0.f;  // rowsum(P o dP), exactly in f32
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      sc[4 * j] *= ia;
+      sc[4 * j + 1] *= ia;
+      sc[4 * j + 2] *= ib;
+      sc[4 * j + 3] *= ib;
+      Da = fmaf(sc[4 * j], dp[4 * j], fmaf(sc[4 * j + 1], dp[4 * j + 1], Da));
+      Db = fmaf(sc[4 * j + 2], dp[4 * j + 2],
+                fmaf(sc[4 * j + 3], dp[4 * j + 3], Db));
+    }
+    Da = quad_sum(Da);
+    Db = quad_sum(Db);
+
+    // the other warpgroup's wgmmas of the last window no longer read the
+    // staging
+    hopper::bar_sync(1, WG_THREADS);
+    uint32_t hi[8][4], lo[8][4];  // dS as A fragments, k16 step kk
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 2 * kk + u;
+        uint8_t* w = my_stg + j * NP * 16;
+        st_u32(w, pack_bf16(sc[4 * j], sc[4 * j + 1]));
+        st_u32(w + 128, pack_bf16(sc[4 * j + 2], sc[4 * j + 3]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - (e < 2 ? Da : Db));
+          db[4 * j + e] += dp[4 * j + e];
+        }
+        pack_split(dp[4 * j], dp[4 * j + 1], hi[kk][2 * u], lo[kk][2 * u]);
+        pack_split(dp[4 * j + 2], dp[4 * j + 3], hi[kk][2 * u + 1],
+                   lo[kk][2 * u + 1]);
+        st_u32(w + STAGED, hi[kk][2 * u]);
+        st_u32(w + STAGED + 128, hi[kk][2 * u + 1]);
+        st_u32(w + 2 * STAGED, lo[kk][2 * u]);
+        st_u32(w + 2 * STAGED + 128, lo[kk][2 * u + 1]);
+      }
+    }
+    hopper::fence_async_smem();  // the staging is read by wgmma
+
+    float aq[8], av[8], ak[8];
+    hopper::fence_regs(aq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {  // dq = dS k, hi + lo
+      hopper::wgmma_rs<16, 1>(aq, hi[kk], mdesc(ks + 512 * kk), kk > 0);
+      hopper::wgmma_rs<16, 1>(aq, lo[kk], mdesc(ks + 512 * kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::bar_sync(2, WG_THREADS);  // all 128 rows of P, hi, lo staged
+
+    const uint32_t st = hopper::smem_u32(stg) + g * 8 * NP * 16;
+    hopper::fence_regs(av);
+    hopper::fence_regs(ak);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)  // dv = P^T do
+      hopper::wgmma_ss<16, 1, 1>(av, sdesc(st + 256 * kk),
+                                 mdesc(dos + 512 * kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {  // dk = dS^T q, hi + lo
+      hopper::wgmma_ss<16, 1, 1>(ak, sdesc(st + STAGED + 256 * kk),
+                                 mdesc(qs + 512 * kk), kk > 0);
+      hopper::wgmma_ss<16, 1, 1>(ak, sdesc(st + 2 * STAGED + 256 * kk),
+                                 mdesc(qs + 512 * kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(aq);
+    hopper::fence_regs(av);
+    hopper::fence_regs(ak);
+    fence_u32(hi);
+    fence_u32(lo);
+    __syncwarp();
+    if (lane == 0) {  // the last warp to finish with this stage refills it
+      __threadfence_block();
+      if ((atomicAdd(&released[s], 1u) & 7u) == 7u && i + S < n) load(i + S);
+    }
+
+    const int b = b0 + i;
+    store16(dq, sdq, aq, b, h, ra, rb, c0, N);  // query rows
+    store16(dv, sdv, av, b, h, ra, rb, c0, N);  // key rows
+    store16(dk, sdk, ak, b, h, ra, rb, c0, N);
+    __syncwarp();
+  }
+
+  float* pb = part + ((size_t)chunk * H + h) * N * N;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e < 2 ? ra : rb, c = 8 * j + c0 + e % 2;
+      if (r < N && c < N) pb[r * N + c] = db[4 * j + e];
+    }
+}
+
+// One tile of each wgmma form of the wg kernels (debug_wgmma_tile): a [64,
+// 16], b and v [128, 16] bf16 land by TMA as the kernels' tiles (a's rows
+// 64-127 zero-filled); s [64, 128] = a b^T (m64n128k16, both K-major in the
+// 32-byte swizzle), o [64, 16] = bf16(s) v (m64n16k16, A from registers, B
+// MN-major), t [128, 16] = bf16(s)^T a (two m64n16k16 M tiles, A MN-major
+// from the staging layout, B MN-major); f32.
+__global__ void __launch_bounds__(128)
+debug_wgmma_tile(const __grid_constant__ CUtensorMap amap,
+                 const __grid_constant__ CUtensorMap bmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 float* __restrict__ s, float* __restrict__ o,
+                 float* __restrict__ t) {
+  __shared__ __align__(1024) uint8_t tiles[3 * TILE];
+  __shared__ __align__(128) uint8_t ps[STAGED];
+  __shared__ uint64_t bar;
+  const int lane = threadIdx.x % 32;
+  const int ra = 16 * (threadIdx.x / 32) + lane / 4, rb = ra + 8;
+  const int c0 = 2 * (lane % 4);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar, 1);
+    hopper::mbar_init_fence();
+    hopper::mbar_expect_tx(&bar, 3 * TILE);
+    hopper::tma_load_4d(tiles, &amap, &bar, 0, 0, 0, 0);
+    hopper::tma_load_4d(tiles + TILE, &bmap, &bar, 0, 0, 0, 0);
+    hopper::tma_load_4d(tiles + 2 * TILE, &vmap, &bar, 0, 0, 0, 0);
+  }
+  __syncthreads();
+  hopper::mbar_wait(&bar, 0);
+  const uint32_t as = hopper::smem_u32(tiles), bsm = as + TILE;
+  const uint32_t vs = as + 2 * TILE;
+
+  float sc[64];
+  scores(sc, as, bsm);
+  uint32_t pa[8][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[(e < 2 ? ra : rb) * NP + 8 * j + c0 + e % 2] = sc[4 * j + e];
+    uint8_t* w = ps + j * NP * 16 + ra * 16 + 2 * c0;
+    st_u32(w, pack_bf16(sc[4 * j], sc[4 * j + 1]));
+    st_u32(w + 128, pack_bf16(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  float acc[8];
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    hopper::wgmma_rs<16, 1>(acc, pa[kk], mdesc(vs + 512 * kk), kk > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  fence_u32(pa);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    o[((e / 2) % 2 ? rb : ra) * WG_D + 8 * (e / 4) + c0 + e % 2] = acc[e];
+
+  hopper::fence_async_smem();
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // K = the 64 rows of a
+      hopper::wgmma_ss<16, 1, 1>(
+          acc, sdesc(hopper::smem_u32(ps) + mt * 8 * NP * 16 + 256 * kk),
+          mdesc(as + 512 * kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      t[(64 * mt + ((e / 2) % 2 ? rb : ra)) * WG_D + 8 * (e / 4) + c0 +
+        e % 2] = acc[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -834,6 +1448,76 @@ bool supported(int N, int d) {
   return N >= 1 && N <= NP && d >= 8 && d <= 64 && d % 8 == 0;
 }
 
+// A tensor map over a [B, H, N, 16] bf16 view with element strides st[0..2]
+// (window, head, token), the box one window-head's [NP][16] tile (rows past
+// N zero-filled) in the 32-byte swizzle. The outer axes go in the order of
+// their strides; ``code`` says which axis sits where (see ``coord``).
+bool encode_heads(CUtensorMap* map, const void* base, const long long* st,
+                  int B, int H, int N, int* code) {
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return false;
+  const long long stride[3] = {st[2], st[1], st[0]};  // token, head, window
+  const cuuint64_t size[3] = {(cuuint64_t)N, (cuuint64_t)H, (cuuint64_t)B};
+  int w[3] = {0, 1, 2};
+  for (int a = 0; a < 2; ++a)
+    for (int c = 0; c < 2 - a; ++c)
+      if (stride[w[c]] > stride[w[c + 1]]) {
+        const int x = w[c];
+        w[c] = w[c + 1];
+        w[c + 1] = x;
+      }
+  const cuuint64_t dims[4] = {WG_D, size[w[0]], size[w[1]], size[w[2]]};
+  const cuuint64_t strides[3] = {(cuuint64_t)stride[w[0]] * 2,
+                                 (cuuint64_t)stride[w[1]] * 2,
+                                 (cuuint64_t)stride[w[2]] * 2};
+  const cuuint32_t box[4] = {WG_D, w[0] == 0 ? NP : 1u, w[1] == 0 ? NP : 1u,
+                             w[2] == 0 ? NP : 1u};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  *code = w[0] | w[1] << 2 | w[2] << 4;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of ``ops`` operands (strides 3 per operand) and their codes, 6
+// bits each.
+bool encode_all(CUtensorMap* maps, const void* const* ops, int count,
+                const long long* st, int B, int H, int N, int* codes) {
+  *codes = 0;
+  for (int op = 0; op < count; ++op) {
+    int code;
+    if (!encode_heads(&maps[op], ops[op], st + 3 * op, B, H, N, &code))
+      return false;
+    *codes |= code << (6 * op);
+  }
+  return true;
+}
+
+bool wg_args_ok(int B, int H, int N, int nW, int wpb) {
+  return N >= 1 && N <= NP && H >= 1 && nW >= 1 && B % nW == 0 && wpb >= 1;
+}
+
+template <typename Kernel>
+int attrs(Kernel kernel, int dynamic, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = dynamic;
+  return (int)err;
+}
+
+template <typename Kernel>
+cudaError_t wg_occupancy(Kernel kernel, int smem, int* per_sm) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                       WG_THREADS, smem);
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Pointers are device pointers; q, k,
@@ -898,5 +1582,112 @@ extern "C" int window_attention_bwd(int f32, const void* q, const void* k,
   const int n = H * N * N;
   dbias_reduce<<<(n + 255) / 256, 256, 0, s>>>(
       pa, static_cast<float*>(dbias), chunks, n);
+  return (int)cudaGetLastError();
+}
+
+// The wg kernels (bf16, d = 16, N <= 128). Blocks of fwd_wg (``bwd`` 0) or
+// bwd_wg (1) that one SM holds at once -> *out: with the SM count, the
+// caller's target for the static assignment of (head, window run) to blocks.
+extern "C" int window_attention_wg_blocks_per_sm(int bwd, int* out) {
+  return (int)(bwd ? wg_occupancy(bwd_wg, BwdWg::BYTES, out)
+                   : wg_occupancy(fwd_wg, FwdWg::BYTES, out));
+}
+
+// fwd_wg: views and ``strides`` as window_attention_fwd (rows 16-byte
+// aligned, the three strides multiples of 8 elements); ``region`` the labels
+// as contiguous f32 [nW, 128], zero past N; block (chunk, h) takes head h
+// and windows chunk * wpb .. (the grid has ceil(B / wpb) * H blocks).
+extern "C" int window_attention_fwd_wg(const void* q, const void* k,
+                                       const void* v, const void* bias,
+                                       const void* region, void* o,
+                                       const long long* strides, int B, int H,
+                                       int N, int nW, int wpb, void* stream) {
+  if (!wg_args_ok(B, H, N, nW, wpb)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ops[3] = {q, k, v};
+  int codes;
+  if (!encode_all(maps, ops, 3, strides, B, H, N, &codes))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(fwd_wg, FwdWg::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = (B + wpb - 1) / wpb;
+  fwd_wg<<<chunks * H, WG_THREADS, FwdWg::BYTES, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(bias),
+      static_cast<const float*>(region), static_cast<__nv_bfloat16*>(o),
+      str(strides + 9), codes, B, H, N, nW, wpb);
+  return (int)cudaGetLastError();
+}
+
+// bwd_wg: as window_attention_bwd (``strides`` for q, k, v, do, dq, dk, dv)
+// with the fwd_wg region and assignment; ``part`` is f32 [chunks, H, N, N]
+// with chunks = ceil(B / wpb), added into dbias in block order.
+extern "C" int window_attention_bwd_wg(const void* q, const void* k,
+                                       const void* v, const void* bias,
+                                       const void* region, const void* dout,
+                                       void* dq, void* dk, void* dv,
+                                       void* part, void* dbias,
+                                       const long long* strides, int B, int H,
+                                       int N, int nW, int wpb, int chunks,
+                                       void* stream) {
+  if (!wg_args_ok(B, H, N, nW, wpb) || chunks != (B + wpb - 1) / wpb)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const void* ops[4] = {q, k, v, dout};
+  int codes;
+  if (!encode_all(maps, ops, 4, strides, B, H, N, &codes))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(bwd_wg, BwdWg::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* pa = static_cast<float*>(part);
+  bwd_wg<<<chunks * H, WG_THREADS, BwdWg::BYTES, s>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
+      static_cast<const float*>(region), static_cast<__nv_bfloat16*>(dq),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), pa,
+      str(strides + 12), str(strides + 15), str(strides + 18), codes, B, H, N,
+      nW, wpb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int n = H * N * N;
+  dbias_reduce<<<(n + 255) / 256, 256, 0, s>>>(
+      pa, static_cast<float*>(dbias), chunks, n);
+  return (int)cudaGetLastError();
+}
+
+// Registers, static shared memory, local (spill) bytes and dynamic shared
+// memory of ``which``: 0 fwd_mma (d = 16), 1 bwd_mma (d = 16), 2 fwd_wg, 3
+// bwd_wg. Writes 4 ints to ``out``.
+extern "C" int window_attention_kernel_attrs(int which, int* out) {
+  switch (which) {
+    case 0:
+      return attrs(fwd_mma<16>, fwd_mma_smem<16>(), out);
+    case 1:
+      return attrs(bwd_mma<16>, bwd_mma_smem<16>(), out);
+    case 2:
+      return attrs(fwd_wg, FwdWg::BYTES, out);
+    case 3:
+      return attrs(bwd_wg, BwdWg::BYTES, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One tile of each wgmma form of the wg kernels (debug_wgmma_tile): a [64,
+// 16], b and v [128, 16] contiguous bf16 -> s [64, 128], o [64, 16], t [128,
+// 16] f32.
+extern "C" int window_attention_debug_wgmma_tile(const void* a, const void* b,
+                                                 const void* v, void* s,
+                                                 void* o, void* t,
+                                                 void* stream) {
+  const long long st64[3] = {64 * WG_D, 64 * WG_D, WG_D};
+  const long long st128[3] = {NP * WG_D, NP * WG_D, WG_D};
+  CUtensorMap maps[3];
+  int code;
+  if (!encode_heads(&maps[0], a, st64, 1, 1, 64, &code) ||
+      !encode_heads(&maps[1], b, st128, 1, 1, NP, &code) ||
+      !encode_heads(&maps[2], v, st128, 1, 1, NP, &code))
+    return (int)cudaErrorInvalidValue;
+  debug_wgmma_tile<<<1, 128, 0, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(s),
+      static_cast<float*>(o), static_cast<float*>(t));
   return (int)cudaGetLastError();
 }
