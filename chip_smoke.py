@@ -65,33 +65,64 @@ each printing a line; any failure exits non-zero before the result lines:
    ``transoar_tpu_torch.predict.main`` on three synthetic NIfTI volumes off
    the training grid; 15 valid detections each, and packed_conv launched
    twice per volume;
-10. training: ``transoar_tpu_torch.train.train`` on full-width foc_dec_amos
-   at batch 2 (bf16, augmentation off) over a synthetic 256x256x128
-   dataset of 8 train and 2 val cases written to a temporary directory: 2
-   epochs = 8 steps + 3 validations; finite losses, changed parameters,
-   ``model_last.pt`` written, and per step 4 / 1 / 2 launches of the
-   forward / dx / dw kernels; the step-time median (device time, without
-   the first step), and per epoch the train loop's volumes/s over its wall
-   time (loader and copies included) and the share of that wall time the
-   compute stream spends outside the steps; peak device memory;
-11. Swin serving: full-width swin_fpn_visceral (160x160x256, bf16, seeded
+10. prepare: ``prepare_dataset_amos.main`` on 10 synthetic AMOS-layout
+   NIfTI cases off the grid (15 organs padded with air, LPS affine) into a
+   temporary dataset at 256x256x128: every .npy of the grid's shape and
+   dtype, finite statistics in data_info.json; if the AMOS filters keep
+   all 10 cases with all 15 organs, phase 11 trains on it, else a printed
+   line says why and a synthetic dataset takes its place;
+11. training: ``transoar_tpu_torch.train.train`` on full-width foc_dec_amos
+   at batch 2 (bf16) as shipped: host augmentation
+   (``HostAugmentingLoader``, 4 threads, 4 cases in flight) over the
+   native C++ loader (``trainer.num_workers: 4``); 8 train and 2 val
+   cases, 2 epochs = 8 steps + 3 validations; fails unless the native
+   loader served every train case and the host augmenter ran on each;
+   finite losses, changed parameters, ``model_last.pt`` written, and per
+   step 4 / 1 / 2 launches of the forward / dx / dw kernels; the
+   step event time's median (CUDA events around each step, without the
+   first; they also hold any time the card waits for the host's enqueue,
+   so they are no device busy time), and per epoch the train loop's
+   volumes/s over its wall time (loader, augmentation and copies
+   included) and the share of that wall time outside the step events;
+   the host augmentation's ms per case; peak device memory;
+12. Swin serving: full-width swin_fpn_visceral (160x160x256, bf16, seeded
    random weights) through ``predict.main`` on two volumes off the grid;
    20 valid detections each, 8 window-forward and 2 packed_conv launches
    per volume, every window launch on fwd_wg;
-12. Swin training: ``train.train`` on full-width swin_fpn_visceral at batch
-   2 over a synthetic 160x160x256 dataset of 6 train and 2 val cases (20
-   organs): 1 epoch = 3 steps + 2 validations; as phase 10, with 8 / 8
-   window forward / backward and 4 / 1 / 2 band-conv launches per step,
-   every window launch on fwd_wg / bwd_wg, and peak memory under 40 GiB.
+13. Swin training: ``train.train`` on full-width swin_fpn_visceral at batch
+   2, as shipped (host augmentation, native loader), over a synthetic
+   160x160x256 dataset of 6 train and 2 val cases (20 organs): 2 epochs =
+   6 steps + 3 validations; as phase 11, with 8 / 8 window forward /
+   backward and 4 / 1 / 2 band-conv launches per step, every window launch
+   on fwd_wg / bwd_wg, and peak memory under 40 GiB;
+14. loop variants: each model's train loop for one epoch of 40 steps
+   (a train split of links cycling through its dataset's cases) with no
+   augmentation, with host augmentation as shipped (4 cases in flight),
+   one batch at a time (the JAX package's design: no case in flight
+   beyond the batch handed out) and on the card
+   (``augmentation.on_device: true``), with the same checks and figures,
+   and the steady rate after the first step and the main thread's shares
+   of the loop (waiting for the loader, preparing copies, calling the
+   step); each model's on-device augmentation of one batch timed alone
+   (CUDA events), after one call under ``torch.cuda.set_sync_debug_mode
+   ("error")``: it never waits on the host;
+15. test: ``transoar_tpu_torch.test.main --val`` on the runs of phases 11
+   and 13: finite mAPs in ``results_val.json``, 2 packed_conv launches a
+   case (and 8 window forwards a Swin case); then the tiny f32 flagship's
+   ``return_weights=True`` forward, card against CPU: attention weights
+   within 1e-3; and the host augmentation alone (no training beside it)
+   on 1, 4 and 8 threads over 16 cases, in cases/s.
 
 Every path is driven with all kernel counts set to 0 just before it and
-read just after; phases 9-12 also require every launch of the band conv's
-forward kernel (forward and dx), and phases 10 and 12 every launch of its
-dw kernel, to have taken the wide or the fold variant, never the generic
-one, and every launch of the window kernels to have taken fwd_wg /
-bwd_wg (none on the flagship's paths). Then one JSON line of per-kernel
-results
-and, last, the device line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+read just after; every serving, training and test path also requires
+every launch of the band conv's forward kernel (forward and dx), and every
+training path every launch of its dw kernel, to have taken the wide or the
+fold variant, never the generic one, and every launch of the window
+kernels to have taken fwd_wg / bwd_wg (none on the flagship's paths).
+Then a line with each model's loop rates in every augmentation setting
+side by side and the host's core count, one JSON line of per-kernel
+results and, last, the device line
+``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
 from __future__ import annotations
@@ -126,6 +157,12 @@ RAGGED_SHAPE = ((3, 13, 70, 10), 40)
 VOLUME_SHAPES = [(300, 280, 150), (240, 236, 110), (280, 300, 140)]
 N_REQUESTS = len(VOLUME_SHAPES)
 TRAIN_CASES, VAL_CASES, EPOCHS, BATCH = 8, 2, 2, 2
+# epochs of the Swin training phase
+SWIN_EPOCHS = 2
+# each loop variant: one epoch of LOOP_STEPS steps over a train split of
+# links to the dataset's train cases, so that filling the augmenter and
+# the prefetch before the first step is a few per cent of the epoch
+LOOP_EPOCHS, LOOP_STEPS = 1, 40
 # band conv launches per train step at batch 2 with encoder remat
 STEP_LAUNCHES = {"packed_conv": 4, "packed_conv_dx": 1, "packed_conv_dw": 2}
 # swin_fpn_visceral (160x160x256): per Swin stage, the windows of one volume
@@ -926,45 +963,53 @@ def phase_swin_serving():
     return counts
 
 
-def _train(cfg, name, train_cases, val_cases, epochs):
-    """train.train on a synthetic dataset of cfg's grid, with every count at
-    0 before; checks losses, moved parameters and model_last.pt; returns
-    (trainer, counts, peak, data_s, run_s)."""
-    from transoar_tpu_torch import train
+def _dataset(root, cfg, train_cases, val_cases):
+    """A synthetic dataset of cfg's grid and organs under root/dataset;
+    returns (its name, the seconds it took)."""
     from transoar_tpu_torch.data.synthetic import generate_dataset
+
+    name = f"synthetic_{cfg['neck']['num_organs']}"
+    t0 = time.perf_counter()
+    generate_dataset(Path(root) / "dataset", name=name,
+                     shape=tuple(cfg["augmentation"]["patch_size"]),
+                     num_classes=cfg["neck"]["num_organs"],
+                     num_train=train_cases, num_val=val_cases, num_test=0,
+                     seed=SEED)
+    return name, time.perf_counter() - t0
+
+
+def _train(cfg, name, root, dataset, epochs, debug=False,
+           **trainer_options):
+    """train.train on root/dataset/<dataset> in root, with every count at 0
+    before; checks losses, moved parameters, the step count and (unless
+    ``debug``: no checkpoints, no validation after the epochs)
+    model_last.pt; returns (trainer, counts, peak, run_s)."""
+    from transoar_tpu_torch import train
     from transoar_tpu_torch.models.transoarnet import build_model
     from transoar_tpu_torch.utils.io import load_json
 
-    cfg.update(experiment_name=name, dataset="synthetic", debug_mode=False)
-    cfg["augmentation"]["use_augmentation"] = False
-    cfg["trainer"].update(epochs=epochs, val_interval=1)
-    with tempfile.TemporaryDirectory() as tmp:
+    cfg.update(experiment_name=name, dataset=dataset, debug_mode=debug)
+    cfg.update(load_json(Path(root) / "dataset" / dataset / "data_info.json"))
+    cfg["trainer"].update(epochs=epochs,
+                          val_interval=epochs + 1 if debug else 1)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
         t0 = time.perf_counter()
-        ds = generate_dataset(
-            Path(tmp) / "dataset", name="synthetic",
-            shape=tuple(cfg["augmentation"]["patch_size"]),
-            num_classes=cfg["neck"]["num_organs"], num_train=train_cases,
-            num_val=val_cases, num_test=0, seed=SEED)
-        cfg.update(load_json(ds / "data_info.json"))
-        data_s = time.perf_counter() - t0
-
-        cwd = os.getcwd()
-        os.chdir(tmp)
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
-            t0 = time.perf_counter()
-            trainer = train.train(cfg, SimpleNamespace(
-                device="cuda", data_dir=str(Path(tmp) / "dataset"),
-                resume=None, auto_resume=False))
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-            counts = _counts()
-            peak = torch.cuda.max_memory_allocated()
-            if not (Path(tmp) / "runs" / name / "model_last.pt").exists():
-                fail(f"{name} training wrote no model_last.pt")
-        finally:
-            os.chdir(cwd)
+        trainer = train.train(cfg, SimpleNamespace(
+            device="cuda", data_dir=str(Path(root) / "dataset"),
+            resume=None, auto_resume=False), **trainer_options)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.chdir(cwd)
+    if not debug and not (Path(root) / "runs" / name / "model_last.pt") \
+            .exists():
+        fail(f"{name} training wrote no model_last.pt")
 
     train_losses = [h["train"]["total"] for h in trainer.history
                     if "train" in h]
@@ -977,86 +1022,471 @@ def _train(cfg, name, train_cases, val_cases, epochs):
     if len(moved) < 0.9 * len(fresh.state_dict()):
         fail(f"{name} training changed only {len(moved)} of "
              f"{len(fresh.state_dict())} tensors")
-    steps = epochs * (train_cases // BATCH)
-    if len(trainer.clock.ms) != steps:
-        fail(f"{len(trainer.clock.ms)} step times for {steps} steps")
-    return trainer, counts, peak, data_s, run_s
+    cases = len(trainer._train_loader) * BATCH
+    if len(trainer.clock.ms) != epochs * cases // BATCH:
+        fail(f"{len(trainer.clock.ms)} step times for "
+             f"{epochs * cases // BATCH} steps")
+    return trainer, counts, peak, run_s
 
 
-def _training_result(trainer, epochs, counts, peak, data_s, run_s):
-    step_ms = trainer.clock.ms
+def _check_loop(name, trainer, epochs, mode):
+    """The train split came through the native loader, and with ``mode``
+    "host" through the host augmenter, every case of every epoch; returns
+    the host augmentation's ms per case (empty without it)."""
+    from transoar_tpu_torch.data.transforms import HostAugmentingLoader
+    from transoar_tpu_torch.native.native_loader import NativeLoader
+
+    loader = trainer._train_loader
+    host = isinstance(loader, HostAugmentingLoader)
+    if host != (mode == "host"):
+        fail(f"{name}: train loader {type(loader).__name__} for "
+             f"augmentation {mode}")
+    native = loader._loader if host else loader
+    if not isinstance(native, NativeLoader):
+        fail(f"{name}: the train split came through "
+             f"{type(native).__name__}, not the native loader")
+    cases = epochs * len(loader) * BATCH
+    augmented = len(loader.case_ms) if host else 0
+    if native.served != cases or augmented != (cases if host else 0):
+        fail(f"{name}: native loader served {native.served} cases, the "
+             f"host augmenter ran on {augmented}, of {cases}")
+    return loader.case_ms if host else []
+
+
+def _training_result(trainer, epochs, counts, peak, run_s, case_ms):
+    """The loop's figures. Step event ms: CUDA events around each step,
+    which also hold any time the card waits for the host's enqueue (no
+    device busy time). Per epoch the loop's volumes/s over its wall time
+    and the share of that wall time outside the step events; for the last
+    epoch the steady rate (its steps after the first over the host time
+    between their starts: no augmenter or prefetch fill) and the shares of
+    its wall time the main thread spent waiting for the loader, preparing
+    the copies (cast, pinning, enqueue) and in the step calls."""
+    clock = trainer.clock
+    step_ms = clock.ms
     steps = len(step_ms)
     median = statistics.median(step_ms[1:])
     per_epoch = steps // epochs
     hist = [h for h in trainer.history if "train" in h]
     loop_s = [h["train_s"] for h in hist]
-    # wall time of the loop in which the compute stream runs no step
     outside = [1 - sum(step_ms[i * per_epoch:(i + 1) * per_epoch])
                / (1e3 * t) for i, t in enumerate(loop_s)]
-    return {"steps": steps, "step_ms": step_ms,
-            "step_ms_median_after_first": median,
-            "step_volumes_per_s": BATCH * 1e3 / median,
-            "loop_s_per_epoch": loop_s,
-            "loop_volumes_per_s_per_epoch": [
-                h["train_volumes"] / t for h, t in zip(hist, loop_s)],
-            "loop_share_outside_steps_per_epoch": outside,
-            "peak_memory_gib": peak / 2 ** 30,
-            "launches": {k: v for k, v in counts.items() if v},
-            "train_total_loss_per_epoch": [h["train"]["total"]
-                                           for h in hist],
-            "val_mAP_coco": [h["metrics"]["mAP_coco"]
-                             for h in trainer.history],
-            "dataset_s": data_s, "run_s": run_s}
+    last = slice(steps - per_epoch, steps)
+    starts = clock.start_s[last]
+    host = {"loader": clock.loader_ms, "copy": clock.copy_ms,
+            "step_call": clock.step_host_ms}
+    if any(len(v) != steps for v in host.values()):
+        fail(f"loop clock: {steps} steps, host times "
+             f"{ {k: len(v) for k, v in host.items()} }")
+    result = {"steps": steps, "step_event_ms": step_ms,
+              "step_event_ms_median_after_first": median,
+              "step_event_volumes_per_s": BATCH * 1e3 / median,
+              "loop_s_per_epoch": loop_s,
+              "loop_volumes_per_s_per_epoch": [
+                  h["train_volumes"] / t for h, t in zip(hist, loop_s)],
+              "loop_volumes_per_s_steady_last_epoch":
+                  BATCH * (per_epoch - 1) / (starts[-1] - starts[0]),
+              "loop_share_outside_step_events_per_epoch": outside,
+              "loop_host_shares_last_epoch": {
+                  k: sum(v[last]) / (1e3 * loop_s[-1])
+                  for k, v in host.items()},
+              "peak_memory_gib": peak / 2 ** 30,
+              "launches": {k: v for k, v in counts.items() if v},
+              "train_total_loss_per_epoch": [h["train"]["total"]
+                                             for h in hist],
+              "val_mAP_coco": [h["metrics"]["mAP_coco"]
+                               for h in trainer.history if "metrics" in h],
+              "run_s": run_s}
+    if case_ms:
+        result.update(host_aug_cases=len(case_ms),
+                      host_aug_ms_per_case_median=statistics.median(case_ms),
+                      host_aug_ms_per_case_mean=statistics.mean(case_ms))
+    return result
 
 
-def phase_training():
+def _want_training(steps, val_batches, windows):
+    want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
+    want["packed_conv"] += 2 * val_batches
+    if windows:
+        want.update(fused_window_attention=windows * (steps + val_batches),
+                    fused_window_attention_bwd=windows * steps)
+    return want
+
+
+def _check_launches(path, counts, want):
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"{path} launched {got}, want {want}")
+    _check_variants(path, counts)
+    _check_window_variants(path, counts)
+
+
+def _write_amos_corpus(raw, cases, seed):
+    """An AMOS-layout corpus (imagesTr/, labelsTr/) of ``cases`` synthetic
+    CT cases off the flagship grid: 15 organs drawn on an inner grid
+    (``data/synthetic.make_case``), padded with air so that no organ
+    touches a face, in flipped-axes (LPS) NIfTI files."""
+    from transoar_tpu_torch.data.nifti import write_nifti
+    from transoar_tpu_torch.data.synthetic import make_case
+    from transoar_tpu_torch.models.anchors import synthetic_bbox_props
+
+    rng = np.random.default_rng(seed)
+    props = synthetic_bbox_props(15, seed=seed)
+    for sub in ("imagesTr", "labelsTr"):
+        (raw / sub).mkdir(parents=True)
+    for i in range(cases):
+        inner = (224 + 8 * (i % 3), 232, 112 + 4 * (i % 2))
+        image, label = make_case(rng, inner, props)
+        pad = ((24, 20), (16, 28), (12, 10))
+        image = np.pad(image * 400.0 - 1000.0, pad, constant_values=-1000.0)
+        label = np.pad(label, pad)
+        affine = np.diag([-0.8, -0.8, 2.5, 1.0])
+        name = f"amos_{i:04d}.nii"
+        write_nifti(image.astype(np.float32), raw / "imagesTr" / name,
+                    affine=affine)
+        write_nifti(label.astype(np.int16), raw / "labelsTr" / name,
+                    affine=affine)
+
+
+def phase_prepare(root):
+    """prepare_dataset_amos on a synthetic raw corpus of TRAIN_CASES +
+    VAL_CASES cases into root/dataset/amos_smoke at the flagship grid;
+    returns the dataset's name if every case passed the AMOS filters with
+    all 15 organs, else None (said on a printed line)."""
+    import yaml
+
+    from transoar_tpu_torch import prepare_dataset_amos
+    from transoar_tpu_torch.utils.io import get_config, load_json
+
+    from transoar_tpu_torch.presets import flagship_config
+
+    cfg = get_config("dataset_amos")
+    grid = list(flagship_config()["augmentation"]["patch_size"])
+    cfg["preprocessing"].update(dataset_name="amos_smoke", resize_shape=grid,
+                                num_train=TRAIN_CASES, num_val=VAL_CASES,
+                                num_test=0)
+    raw = Path(root) / "raw_amos"
+    t0 = time.perf_counter()
+    _write_amos_corpus(raw, TRAIN_CASES + VAL_CASES, SEED)
+    raw_s = time.perf_counter() - t0
+    (Path(root) / "dataset_amos_smoke.yaml").write_text(yaml.safe_dump(cfg))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = prepare_dataset_amos.main([
+            "--path_to_dataset", str(raw), "--config",
+            str(Path(root) / "dataset_amos_smoke.yaml"),
+            "--out", str(Path(root) / "dataset")])
+        prep_s = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+    finally:
+        os.chdir(cwd)
+    if counts:
+        fail(f"prepare launched {counts}: it is host only")
+    info = load_json(out / "data_info.json")
+    kept = {split: sorted(p.name for p in (out / split).iterdir())
+            for split in ("train", "val") if (out / split).exists()}
+    for split, names in kept.items():
+        for case in names:
+            image = np.load(out / split / case / "data.npy", mmap_mode="r")
+            label = np.load(out / split / case / "label.npy", mmap_mode="r")
+            if image.shape != tuple(grid) or label.shape != tuple(grid) \
+                    or image.dtype != np.float32 or label.dtype != np.int32:
+                fail(f"prepare wrote {split}/{case}: {image.shape} "
+                     f"{image.dtype}, {label.shape} {label.dtype}")
+    stats = info["foreground_voxel_statistics"]
+    if not all(np.isfinite(v) for v in stats.values()) or \
+            info["shape_statistics"]["median"] != grid:
+        fail(f"prepare's data_info.json: {stats}, "
+             f"{info['shape_statistics']}")
+    organs = sorted(int(k) for k in info["bbox_properties"])
+    n_kept = {k: len(v) for k, v in kept.items()}
+    print(f"prepare: prepare_dataset_amos on {TRAIN_CASES + VAL_CASES} "
+          f"synthetic NIfTI cases off the grid (raw corpus {raw_s:.1f} s, "
+          f"prepare {prep_s:.1f} s): kept {json.dumps(n_kept)}, organs "
+          f"{organs}, window {stats['percentile_00_5']:.1f} .. "
+          f"{stats['percentile_99_5']:.1f}", flush=True)
+    if n_kept == {"train": TRAIN_CASES, "val": VAL_CASES} and \
+            organs == list(range(1, 16)):
+        return "amos_smoke"
+    print(f"prepare: the AMOS filters kept {json.dumps(n_kept)} cases with "
+          f"organs {organs}, not {TRAIN_CASES} + {VAL_CASES} with all 15: "
+          f"phase 11 trains on a synthetic dataset instead", flush=True)
+    return None
+
+
+def phase_training(root, dataset):
+    """The flagship as shipped (host augmentation through the native
+    loader) for EPOCHS epochs; returns (counts, result)."""
     from transoar_tpu_torch.presets import flagship_config
 
     cfg = flagship_config(batch_size=BATCH)
-    trainer, counts, peak, data_s, run_s = _train(
-        cfg, "foc_dec_amos_smoke", TRAIN_CASES, VAL_CASES, EPOCHS)
+    aug = cfg["augmentation"]
+    if not aug["use_augmentation"] or aug["on_device"] or \
+            cfg["trainer"]["num_workers"] <= 0:
+        fail(f"foc_dec_amos no longer ships host augmentation with loader "
+             f"threads: {aug['use_augmentation']}, {aug['on_device']}, "
+             f"{cfg['trainer']['num_workers']}")
+    trainer, counts, peak, run_s = _train(cfg, "foc_dec_amos_smoke", root,
+                                          dataset, EPOCHS)
+    case_ms = _check_loop("training", trainer, EPOCHS, "host")
     steps = EPOCHS * (TRAIN_CASES // BATCH)
-    val_batches = (EPOCHS + 1) * (VAL_CASES // BATCH)
-    want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
-    want["packed_conv"] += 2 * val_batches
-    got = {k: v for k, v in counts.items() if v}
-    if got != want:
-        fail(f"training launched {got}, want {want}")
-    _check_variants("training", counts)
-    _check_window_variants("training", counts)
-    result = _training_result(trainer, EPOCHS, counts, peak, data_s, run_s)
-    print(f"training: foc_dec_amos 256x256x128 batch {BATCH} bf16, "
-          f"{json.dumps(result)}", flush=True)
-    return counts
+    _check_launches("training", counts, _want_training(
+        steps, (EPOCHS + 1) * (VAL_CASES // BATCH), 0))
+    result = _training_result(trainer, EPOCHS, counts, peak, run_s, case_ms)
+    print(f"training: foc_dec_amos 256x256x128 batch {BATCH} bf16 on "
+          f"{dataset}, as shipped: host augmentation, "
+          f"{cfg['trainer']['num_workers']} threads and as many cases in "
+          f"flight, native loader; {json.dumps(result)}", flush=True)
+    return counts, result
 
 
-def phase_swin_training():
+def phase_swin_training(root, dataset):
     from transoar_tpu_torch.presets import swin_fpn_config
 
     cfg = swin_fpn_config(batch_size=BATCH)
     if float(cfg["trainer"]["clip_max_norm"]) > 0:
         fail("swin_fpn_visceral clips its gradients: clip_max_norm > 0")
-    trainer, counts, peak, data_s, run_s = _train(
-        cfg, "swin_fpn_visceral_smoke", SWIN_TRAIN_CASES, SWIN_VAL_CASES, 1)
-    steps = SWIN_TRAIN_CASES // BATCH
-    val_batches = 2 * (SWIN_VAL_CASES // BATCH)  # before and after epoch 1
-    want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
-    want["packed_conv"] += 2 * val_batches
-    want.update(fused_window_attention=SWIN_WINDOW_LAUNCHES
-                * (steps + val_batches),
-                fused_window_attention_bwd=SWIN_WINDOW_LAUNCHES * steps)
-    got = {k: v for k, v in counts.items() if v}
-    if got != want:
-        fail(f"Swin training launched {got}, want {want}")
-    _check_variants("swin_training", counts)
-    _check_window_variants("swin_training", counts)
+    if not cfg["augmentation"]["use_augmentation"] or \
+            cfg["augmentation"]["on_device"]:
+        fail("swin_fpn_visceral no longer ships host augmentation")
+    trainer, counts, peak, run_s = _train(
+        cfg, "swin_fpn_visceral_smoke", root, dataset, SWIN_EPOCHS)
+    case_ms = _check_loop("Swin training", trainer, SWIN_EPOCHS, "host")
+    steps = SWIN_EPOCHS * (SWIN_TRAIN_CASES // BATCH)
+    _check_launches("swin_training", counts, _want_training(
+        steps, (SWIN_EPOCHS + 1) * (SWIN_VAL_CASES // BATCH),
+        SWIN_WINDOW_LAUNCHES))
     if peak >= 40 * 2 ** 30:
         fail(f"Swin training peak memory {peak / 2 ** 30:.2f} GiB >= 40")
-    result = _training_result(trainer, 1, counts, peak, data_s, run_s)
+    result = _training_result(trainer, SWIN_EPOCHS, counts, peak, run_s,
+                              case_ms)
     grid = "x".join(map(str, cfg["augmentation"]["patch_size"]))
-    print(f"swin training: swin_fpn_visceral {grid} batch {BATCH} bf16, "
-          f"{json.dumps(result)}", flush=True)
-    return counts
+    print(f"swin training: swin_fpn_visceral {grid} batch {BATCH} bf16, as "
+          f"shipped: host augmentation, native loader; {json.dumps(result)}",
+          flush=True)
+    return counts, result
+
+
+def _device_aug_ms(cfg, root, dataset):
+    """Median device ms of augment_batch on one train batch of the dataset
+    (CUDA events, 10 runs); one call first under
+    ``torch.cuda.set_sync_debug_mode("error")``: the augmentation never
+    waits on the host."""
+    from transoar_tpu_torch.data.transforms import augment_batch
+
+    split = Path(root) / "dataset" / dataset / "train"
+    cases = sorted(split.iterdir())[:BATCH]
+    images = torch.as_tensor(np.stack([np.load(c / "data.npy")
+                                       for c in cases]))[..., None].cuda()
+    labels = torch.as_tensor(np.stack([np.load(c / "label.npy")
+                                       for c in cases])).long().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    aug = dict(cfg["augmentation"], on_device=True)
+    stats = cfg["foreground_voxel_statistics"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = augment_batch(images, labels, gen, aug, stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if out[0].shape != images.shape or out[1].shape != labels.shape or \
+            not torch.isfinite(out[0]).all():
+        fail("device augmentation: wrong shapes or non-finite values")
+    return _median_ms(lambda: augment_batch(images, labels, gen, aug, stats),
+                      runs=10, warmup=2)
+
+
+def _long_split(root, dataset, cases):
+    """root/dataset/<dataset>_x<cases>: a train split of ``cases`` links
+    that cycle through the dataset's train cases, its val split and its
+    data_info.json; returns the name."""
+    src = Path(root) / "dataset" / dataset
+    name = f"{dataset}_x{cases}"
+    out = Path(root) / "dataset" / name
+    (out / "train").mkdir(parents=True)
+    real = sorted((src / "train").iterdir())
+    for i in range(cases):
+        (out / "train" / f"case_{i:04d}").symlink_to(real[i % len(real)])
+    (out / "val").symlink_to(src / "val")
+    (out / "data_info.json").write_bytes((src / "data_info.json")
+                                         .read_bytes())
+    return name
+
+
+def phase_loop_variants(root, datasets):
+    """Each model's train loop in every augmentation setting, one epoch of
+    LOOP_STEPS steps each over a long split of links to its dataset (no
+    checkpoints, one validation before): none, host as shipped
+    (``num_workers`` threads and as many cases in flight), host one batch
+    at a time (the JAX package's design: no case in flight beyond the
+    batch handed out) and on the card (``on_device: true``); with each
+    model's on-device augmentation timed alone. Returns (counts by path,
+    results, the long splits by model)."""
+    from transoar_tpu_torch.presets import flagship_config, swin_fpn_config
+
+    variants = {"none": ({"use_augmentation": False}, None),
+                "host": ({}, None),
+                "host_one_batch": ({}, 0),
+                "device": ({"on_device": True}, None)}
+    cases = BATCH * LOOP_STEPS
+    made = {d: _long_split(root, d, cases) for d in set(datasets.values())}
+    long_splits = {model: made[d] for model, d in datasets.items()}
+    counts_by_path, results = {}, {}
+    for model, make, val, windows in (
+            ("foc_dec_amos", flagship_config, VAL_CASES, 0),
+            ("swin_fpn_visceral", swin_fpn_config, SWIN_VAL_CASES,
+             SWIN_WINDOW_LAUNCHES)):
+        for variant, (aug, ahead) in variants.items():
+            cfg = make(batch_size=BATCH)
+            cfg["augmentation"].update(aug)
+            path = f"{model}_{variant}"
+            trainer, counts, peak, run_s = _train(
+                cfg, path, root, long_splits[model], LOOP_EPOCHS, debug=True,
+                _host_ahead=ahead)
+            mode = {"none": None, "device": "device"}.get(variant, "host")
+            case_ms = _check_loop(path, trainer, LOOP_EPOCHS, mode)
+            if mode == "host":
+                want = cfg["trainer"]["num_workers"] if ahead is None \
+                    else ahead
+                if trainer._train_loader._ahead != want:
+                    fail(f"{path}: host augmenter keeps "
+                         f"{trainer._train_loader._ahead} cases in flight, "
+                         f"not {want}")
+            _check_launches(path, counts, _want_training(
+                LOOP_EPOCHS * LOOP_STEPS, val // BATCH, windows))
+            result = _training_result(trainer, LOOP_EPOCHS, counts, peak,
+                                      run_s, case_ms)
+            if variant == "device":
+                result["device_aug_ms_per_batch"] = _device_aug_ms(
+                    cfg, root, datasets[model])
+            print(f"loop: {model} augmentation {variant}, "
+                  f"{json.dumps(result)}", flush=True)
+            counts_by_path[path], results[path] = counts, result
+    return counts_by_path, results, long_splits
+
+
+def _host_aug_scaling(root, dataset, threads=(1, 4, 8), cases=16):
+    """Cases/s of augment_case_np alone (no training beside it) over the
+    first ``cases`` train cases of the dataset with the flagship's shipped
+    augmentation, on each thread count: what the host gives the augmenter
+    when nothing else runs."""
+    from transoar_tpu_torch.data.transforms import augment_case_np
+    from transoar_tpu_torch.presets import flagship_config
+    from transoar_tpu_torch.utils.io import load_json
+
+    aug = flagship_config()["augmentation"]
+    stats = load_json(Path(root) / "dataset" / dataset / "data_info.json")[
+        "foreground_voxel_statistics"]
+    split = Path(root) / "dataset" / dataset / "train"
+    cases = [(np.load(c / "data.npy")[..., None], np.load(c / "label.npy"))
+             for c in sorted(split.iterdir())[:cases]]
+    rates = {}
+    for n in threads:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n) as pool:
+            list(pool.map(lambda i: augment_case_np(*cases[i], i, aug,
+                                                    stats),
+                          range(len(cases))))
+        rates[n] = len(cases) / (time.perf_counter() - t0)
+    print(f"host augmentation alone: {len(cases)} flagship cases, cases/s "
+          f"by thread count {json.dumps(rates)}", flush=True)
+
+
+def _loop_summary(results):
+    """One line: each model's loop in every augmentation setting side by
+    side (phase 14): the epoch's rate, the steady rate, the share outside
+    the step events, the main thread's shares, the step event median."""
+    summary = {}
+    for path, r in results.items():
+        summary[path] = {
+            "loop_volumes_per_s_last_epoch":
+                r["loop_volumes_per_s_per_epoch"][-1],
+            "loop_volumes_per_s_steady_last_epoch":
+                r["loop_volumes_per_s_steady_last_epoch"],
+            "loop_share_outside_step_events_last_epoch":
+                r["loop_share_outside_step_events_per_epoch"][-1],
+            "loop_host_shares_last_epoch": r["loop_host_shares_last_epoch"],
+            "step_event_ms_median_after_first":
+                r["step_event_ms_median_after_first"],
+            **{k: r[k] for k in ("host_aug_ms_per_case_median",
+                                 "device_aug_ms_per_batch") if k in r}}
+    print(f"loop summary ({os.cpu_count()} host cores, "
+          f"{len(os.sched_getaffinity(0))} usable): {json.dumps(summary)}",
+          flush=True)
+
+
+def _attention_weights_check():
+    """The tiny f32 flagship's return_weights=True forward on the card
+    against the CPU (1e-3)."""
+    from transoar_tpu_torch.models.transoarnet import build_model
+    from transoar_tpu_torch.utils.weights import random_state_dict
+
+    cfg, _ = _tiny("flagship")
+    x = np.random.default_rng(SEED).normal(
+        size=(1, *cfg["augmentation"]["patch_size"], 1))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, dtype=torch.float32, device=device).eval()
+        model.load_state_dict(random_state_dict(model, SEED))
+        with torch.inference_mode():
+            out = model(torch.as_tensor(x, dtype=torch.float32,
+                                        device=device), return_weights=True)
+        outs[device] = {k: v.float().cpu() for k, v in out.items()}
+    errs = {}
+    for key in ("attn_weights", "self_attn_weights"):
+        torch.testing.assert_close(outs["cuda"][key], outs["cpu"][key],
+                                   rtol=0, atol=1e-3)
+        errs[key] = (outs["cuda"][key] - outs["cpu"][key]).abs().max().item()
+    return errs
+
+
+def phase_test(root):
+    """test.main --val on the runs phases 11 and 13 trained, each with every
+    count at 0 before; finite mAPs in results_val.json; then the attention
+    weights on the card against the CPU. Returns the counts by path."""
+    from transoar_tpu_torch import test
+    from transoar_tpu_torch.utils.io import load_json
+
+    counts_by_path = {}
+    for path, run, val, windows in (
+            ("test", "foc_dec_amos_smoke", VAL_CASES, 0),
+            ("swin_test", "swin_fpn_visceral_smoke", SWIN_VAL_CASES,
+             SWIN_WINDOW_LAUNCHES)):
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            _reset_launches()
+            t0 = time.perf_counter()
+            scores = test.main(["--run", run, "--val", "--data_dir",
+                                str(Path(root) / "dataset")])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            os.chdir(cwd)
+        written = load_json(Path(root) / "runs" / run / "results_val.json")
+        maps = {k: v for k, v in written.items() if k.startswith("mAP")}
+        if written != scores or not maps or \
+                not all(np.isfinite(v) for v in maps.values()):
+            fail(f"{path}: results_val.json {written}")
+        maps = {k: v for k, v in maps.items()
+                if not k.endswith("_")}  # per-organ keys end in "_"
+        want = {"packed_conv": 2 * val}
+        if windows:
+            want["fused_window_attention"] = windows * val
+        _check_launches(path, counts, want)
+        print(f"{path}: test.py --val on {run}, {val} cases in {secs:.1f} s; "
+              f"{json.dumps(maps)}; launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}",
+              flush=True)
+        counts_by_path[path] = counts
+    errs = _attention_weights_check()
+    print(f"test: tiny flagship return_weights=True, card vs CPU max abs "
+          f"diff {json.dumps(errs)}", flush=True)
+    return counts_by_path
 
 
 def _entry(name, replaces, launches, rows, path_rows,
@@ -1080,6 +1510,8 @@ def _entry(name, replaces, launches, rows, path_rows,
 
 
 def main():
+    from transoar_tpu_torch.presets import flagship_config, swin_fpn_config
+
     phase_device()
     phase_build()
     fwd_rows = phase_kernel()
@@ -1089,9 +1521,28 @@ def main():
     for kind in ("flagship", "swin"):
         phase_small_model(kind)
         phase_small_train(kind)
-    paths = {"serving": phase_serving(), "training": phase_training(),
-             "swin_serving": phase_swin_serving(),
-             "swin_training": phase_swin_training()}
+    paths = {"serving": phase_serving()}
+    with tempfile.TemporaryDirectory() as root:
+        datasets = {"foc_dec_amos": phase_prepare(root)}
+        for model, make, cases, val in (
+                ("foc_dec_amos", flagship_config, TRAIN_CASES, VAL_CASES),
+                ("swin_fpn_visceral", swin_fpn_config, SWIN_TRAIN_CASES,
+                 SWIN_VAL_CASES)):
+            if datasets.get(model) is None:
+                datasets[model], secs = _dataset(root, make(), cases, val)
+                print(f"dataset: {datasets[model]}, {cases} + {val} "
+                      f"synthetic cases in {secs:.1f} s", flush=True)
+        paths["training"], _ = phase_training(
+            root, datasets["foc_dec_amos"])
+        paths["swin_serving"] = phase_swin_serving()
+        paths["swin_training"], _ = phase_swin_training(
+            root, datasets["swin_fpn_visceral"])
+        variant_counts, loop_results, long_splits = phase_loop_variants(
+            root, datasets)
+        paths.update(variant_counts)
+        paths.update(phase_test(root))
+        _host_aug_scaling(root, long_splits["foc_dec_amos"])
+    _loop_summary(loop_results)
     src = "transoar_tpu/ops/pallas/packed_conv.py"
     wsrc = "transoar_tpu/ops/pallas/window_attention.py"
     timed = [r for r in win_rows if "ms" in r]

@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host-side modules against their
 originals, on the same inputs: NIfTI I/O, config I/O, anchors, presets,
-the synthetic dataset, the loader, the evaluator and the Swin window
-helpers. Every copy must agree exactly (same numpy code)."""
+the synthetic dataset, the loader, the evaluator, the Swin window
+helpers, the host augmentation and its loader, the offline preprocessor
+and the visualization writers. Every copy must agree exactly (same numpy
+code)."""
 
 import gzip
 import json
@@ -15,16 +17,20 @@ from tests.helpers import tiny_config
 from transoar_tpu import presets as jpresets
 from transoar_tpu.data import dataset as jdataset
 from transoar_tpu.data import nifti as jnifti
+from transoar_tpu.data import preprocessor as jpreprocessor
 from transoar_tpu.data import synthetic as jsynthetic
+from transoar_tpu.data import transforms as jtransforms
 from transoar_tpu.eval import evaluator as jevaluator
 from transoar_tpu.models import anchors as janchors
 from transoar_tpu.models import swin as jswin
 from transoar_tpu.utils import io as jio
+from transoar_tpu.utils import visualization as jvisualization
 from transoar_tpu_torch import presets
-from transoar_tpu_torch.data import dataset, nifti, synthetic
+from transoar_tpu_torch.data import (dataset, nifti, preprocessor, synthetic,
+                                     transforms)
 from transoar_tpu_torch.eval import evaluator
 from transoar_tpu_torch.models import anchors, swin
-from transoar_tpu_torch.utils import io
+from transoar_tpu_torch.utils import io, visualization
 
 
 @pytest.mark.parametrize("suffix,dtype", [(".nii.gz", np.int16),
@@ -201,3 +207,134 @@ def test_swin_window_helpers_match(spatial, shift):
     np.testing.assert_array_equal(windows, jswin.window_partition(x, ws))
     back = swin.window_reverse(torch.from_numpy(windows), ws, 2, *padded)
     np.testing.assert_array_equal(back.numpy(), x)
+
+
+def _all_p(p):
+    """The shipped augmentation keys with every probability set to p."""
+    aug = dict(io.get_config("foc_dec_amos")["augmentation"])
+    for key in aug:
+        if key.startswith("p_"):
+            aug[key] = p
+    aug["p_flip"] = p / 2  # each axis its own draw
+    return aug
+
+
+def _same_files(ours, ref):
+    files = sorted(q.relative_to(ref) for q in ref.rglob("*") if q.is_file())
+    assert files == sorted(q.relative_to(ours) for q in ours.rglob("*")
+                           if q.is_file())
+    assert files
+    for f in files:
+        assert (ours / f).read_bytes() == (ref / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("p", [1.0, 0.0])
+def test_host_augmentation_matches(rng, seed, p):
+    image = rng.normal(size=(14, 12, 8, 1)).astype(np.float32)
+    label = rng.integers(0, 4, size=(14, 12, 8)).astype(np.int32)
+    aug = _all_p(p)
+    stats = {"percentile_00_5": -1.5, "percentile_99_5": 2.0}
+    for s in (None, stats):
+        args = (image.shape[:3], aug)
+        for x, y in zip(
+                transforms.sample_affine_np(np.random.default_rng(seed),
+                                            *args),
+                jtransforms.sample_affine_np(np.random.default_rng(seed),
+                                             *args)):
+            np.testing.assert_array_equal(x, y)
+        ours = transforms.augment_case_np(image, label, seed, aug, s)
+        ref = jtransforms.augment_case_np(image, label, seed, aug, s)
+        for x, y in zip(ours, ref):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    if p == 0.0:  # the window alone
+        np.testing.assert_array_equal(ours[1], label)
+
+
+@pytest.mark.parametrize("ahead", [0, 3])
+def test_host_augmenting_loader_matches(tmp_path, ahead):
+    """Two epochs of batches over a shuffled split: the same bits as the
+    JAX package's loader, one batch at a time or with cases in flight."""
+    synthetic.generate_dataset(tmp_path, name="syn", shape=(16, 12, 8),
+                               num_classes=3, num_train=5, num_val=0,
+                               num_test=0, seed=2)
+    cfg = tiny_config(num_organs=3)
+    cfg["dataset"] = "syn"
+    cfg["trainer"].update(batch_size=2, num_workers=0, shuffle=True)
+    aug, stats = _all_p(0.5), {"percentile_00_5": -0.5,
+                               "percentile_99_5": 1.5}
+    ours = transforms.HostAugmentingLoader(
+        dataset.get_loader(cfg, "train", data_dir=tmp_path), aug, stats,
+        seed=3, workers=2, ahead=ahead)
+    ref = jtransforms.HostAugmentingLoader(
+        jdataset.get_loader(cfg, "train", data_dir=tmp_path), aug, stats,
+        seed=3, workers=2)
+    assert len(ours) == len(ref) == 2
+    for _ in range(2):
+        pairs = list(zip(ours, ref))
+        assert len(pairs) == 2
+        for x, y in pairs:
+            assert x.keys() == y.keys()
+            for key in x:
+                np.testing.assert_array_equal(x[key], y[key])
+    assert len(ours.case_ms) == 8
+
+
+def test_preprocessor_matches(tmp_path):
+    """The whole PreProcessor on self-written NIfTI cases (a crop, a resize
+    off the grid, a case the border filter drops): the same .npy bits and
+    the same data_info.json."""
+    rng = np.random.default_rng(5)
+    raw = tmp_path / "raw"
+    for sub in ("imagesTr", "labelsTr"):
+        (raw / sub).mkdir(parents=True)
+    for i in range(4):
+        shape = (30 + 3 * i, 26, 18)
+        label = np.zeros(shape, np.int16)
+        label[5:15, 6:14, 4:9] = 1
+        label[16:24, 13:21, 9:15] = 2
+        if i == 3:
+            label[0:3, 6:10, 4:8] = 1  # organ 1 on the boundary
+        image = label * 90.0 + rng.normal(scale=10, size=shape)
+        affine = np.diag([-1.2, 1.0, 2.0, 1.0])
+        nifti.write_nifti(image.astype(np.float32),
+                          raw / "imagesTr" / f"c{i}.nii.gz", affine=affine)
+        nifti.write_nifti(label, raw / "labelsTr" / f"c{i}.nii.gz",
+                          affine=affine)
+    case = [{"image": f"imagesTr/c{i}.nii.gz",
+             "label": f"labelsTr/c{i}.nii.gz", "name": f"c{i}"}
+            for i in range(4)]
+    splits = {"train": case[:2], "val": case[2:3], "test": case[3:]}
+    prep = {"resize_shape": [24, 20, 12], "margin": [2, 2, 2],
+            "border_organs": [1, 2]}
+    data = {"num_classes": 2, "labels": {"1": "a", "2": "b"},
+            "labels_small": {}, "labels_mid": {}, "labels_large": {}}
+    preprocessor.PreProcessor(splits, raw, tmp_path / "ours", prep,
+                              data).run()
+    jpreprocessor.PreProcessor(splits, raw, tmp_path / "ref", prep,
+                               data).run()
+    _same_files(tmp_path / "ours", tmp_path / "ref")
+    assert len(list((tmp_path / "ours" / "train").iterdir())) == 2
+    assert not (tmp_path / "ours" / "test").exists()  # c3 filtered out
+
+
+def test_visualization_writers_match(tmp_path):
+    cfg = tiny_config(num_organs=2, qpo=7, patch=(32, 32, 16),
+                      input_level="P2")
+    rng = np.random.default_rng(0)
+    seg = np.zeros((32, 32, 16), np.int32)
+    seg[4:12, 4:12, 2:8] = 1
+    seg[16:24, 16:24, 8:14] = 2
+    boxes = rng.uniform(0.3, 0.6, size=(2, 6)).astype(np.float32)
+    out = {"attn_weights": rng.uniform(size=(1, 4, 14, 256))
+           .astype(np.float32),
+           "self_attn_weights": rng.uniform(size=(1, 14, 14))
+           .astype(np.float32),
+           "pred_logits": rng.normal(size=(1, 14, 1)).astype(np.float32)}
+    for mod, name in ((visualization, "ours"), (jvisualization, "ref")):
+        mod.save_pred_visualization(boxes, np.array([1, 2]),
+                                    np.array([0.9, 0.4]), boxes[:1],
+                                    np.array([1]), seg, tmp_path / name, 3)
+        mod.save_attn_visualization(out, cfg, tmp_path / name, 3, seg=seg)
+    _same_files(tmp_path / "ours", tmp_path / "ref")

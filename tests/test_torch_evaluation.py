@@ -1,0 +1,183 @@
+"""The port's evaluation path against the JAX package on the CPU: the
+attention weights ``return_weights=True`` exports (RoI and dense
+cross-attention) within the logits tolerance 2e-4, ``python -m
+transoar_tpu_torch.test --val`` against ``scripts/test.py`` on the same
+weights and split (``results_val.json`` within 1e-4), and the
+``import_checkpoint`` round trip (the forward bit-equal after import)."""
+
+import argparse
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from tests.helpers import tiny_config
+from tests.torch_parity import randomize
+from transoar_tpu.eval import evaluator as jax_evaluator
+from transoar_tpu.models.transoarnet import build_transoarnet as build_jax
+from transoar_tpu.training import checkpoints as jckpt
+from transoar_tpu.training.train_state import create_train_state
+from transoar_tpu_torch import import_checkpoint, test as test_cli
+from transoar_tpu_torch.data.synthetic import generate_dataset
+from transoar_tpu_torch.eval import evaluator as port_evaluator
+from transoar_tpu_torch.models.transoarnet import build_model
+from transoar_tpu_torch.training import checkpoints as ckpt_lib
+from transoar_tpu_torch.utils.io import load_json
+from transoar_tpu_torch.utils.weights import (random_state_dict,
+                                              state_dict_from_jax)
+
+INFO_KEYS = ("labels", "labels_small", "labels_mid", "labels_large",
+             "bbox_properties", "foreground_voxel_statistics")
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """A tiny flagship config over a synthetic split, the JAX model with
+    seeded random parameters and the port model with the same ones."""
+    root = tmp_path_factory.mktemp("eval")
+    ds = generate_dataset(root / "dataset", name="syn", shape=(32, 32, 16),
+                          num_classes=3, num_train=2, num_val=3, num_test=0,
+                          seed=4)
+    cfg = tiny_config(num_organs=3, qpo=7)
+    cfg["dataset"] = "syn"
+    info = load_json(ds / "data_info.json")
+    cfg.update({k: info[k] for k in INFO_KEYS})
+    x = np.random.default_rng(1).normal(
+        0.5, 0.5, size=(1, 32, 32, 16, 1)).astype(np.float32)
+    jmodel = build_jax(cfg)
+    params = randomize(jax.tree.map(np.asarray, jax.jit(jmodel.init)(
+        jax.random.key(0), jnp.asarray(x))["params"]), 3)
+    port = build_model(cfg).eval()
+    port.load_state_dict(state_dict_from_jax(params, cfg))
+    return SimpleNamespace(root=root, cfg=cfg, x=x, jmodel=jmodel,
+                           params=params, port=port)
+
+
+@pytest.mark.parametrize("roi", [True, False])
+def test_attention_weights_match_jax(tiny, roi):
+    cfg = dict(tiny.cfg, neck=dict(tiny.cfg["neck"], roi_attention=roi))
+    jmodel = build_jax(cfg)
+    port = build_model(cfg).eval()
+    port.load_state_dict(tiny.port.state_dict())
+    assert port._neck.use_roi == roi
+    ref = jax.jit(lambda p, x: jmodel.apply(
+        {"params": p}, x, return_weights=True))(tiny.params,
+                                                jnp.asarray(tiny.x))
+    with torch.inference_mode():
+        ours = port(torch.from_numpy(tiny.x), return_weights=True)
+    Q, H = cfg["neck"]["num_queries"], cfg["neck"]["nheads"]
+    assert ours["attn_weights"].shape == (1, H, Q, 8 * 8 * 4)
+    assert ours["self_attn_weights"].shape == (1, Q, Q)
+    for key in ("attn_weights", "self_attn_weights", "backbone_fmap",
+                "pred_logits"):
+        np.testing.assert_allclose(ours[key].float().numpy(),
+                                   np.asarray(ref[key], np.float32),
+                                   rtol=0, atol=2e-4, err_msg=key)
+    # each query's weights cover only its organ's attention area
+    sums = ours["attn_weights"].sum(-1)
+    torch.testing.assert_close(sums, torch.ones_like(sums))
+
+
+def test_test_cli_matches_scripts_test(tiny, monkeypatch):
+    from scripts import test as jax_test_cli
+
+    monkeypatch.chdir(tiny.root)
+    jmodel = tiny.jmodel
+    state = create_train_state(jmodel, tiny.cfg, jnp.asarray(tiny.x),
+                               jax.random.key(0), 1)
+    state = state.replace(params=jax.tree.map(jnp.asarray, tiny.params))
+    jrun, run = tiny.root / "runs" / "jexp", tiny.root / "runs" / "texp"
+    jckpt.freeze_run_config(tiny.cfg, jrun)
+    jckpt.save_checkpoint(jrun, "model_last", state, 1, 0.0)
+    ckpt_lib.freeze_run_config(tiny.cfg, run)
+    ckpt_lib.save_checkpoint(run, "model_last", tiny.port)
+
+    # what each CLI hands its evaluator, case by case
+    fed = {"ref": [], "ours": []}
+    for side, cls in (("ref", jax_evaluator.DetectionEvaluator),
+                      ("ours", port_evaluator.DetectionEvaluator)):
+        def add(self, *args, _add=cls.add, _into=fed[side], **kwargs):
+            _into.append((args, kwargs))
+            return _add(self, *args, **kwargs)
+        monkeypatch.setattr(cls, "add", add)
+
+    data_dir = str(tiny.root / "dataset")
+    ref = jax_test_cli.Tester(argparse.Namespace(
+        run="jexp", val=True, last=True, full_labeled=False,
+        save_preds=False, save_attn_map=False, data_dir=data_dir)).run()
+    ours = test_cli.main(["--run", "texp", "--val", "--last", "--device",
+                          "cpu", "--data_dir", data_dir])
+    assert load_json(run / "results_val.json") == ours
+    # the seeded weights hit some boxes and miss others, so the scores
+    # tell decoders apart: neither all 0 nor all 1
+    assert 0 < ref["mAP_coco"] < 1 and 0 < ref["AP_IoU_0.75"] < 1
+    assert ours.keys() == ref.keys()
+    for key in ours:
+        np.testing.assert_allclose(ours[key], ref[key], atol=1e-4,
+                                   err_msg=key)
+    assert len(fed["ours"]) == len(fed["ref"]) == 3
+    for (args, kw), (ref_args, ref_kw) in zip(fed["ours"], fed["ref"]):
+        boxes, classes, scores = (a[0] for a in args[:3])
+        ref_boxes, ref_classes, ref_scores = (a[0] for a in ref_args[:3])
+        np.testing.assert_array_equal(classes, ref_classes)
+        np.testing.assert_allclose(scores, ref_scores, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(boxes, ref_boxes, rtol=0, atol=1e-4)
+        for key in ("gt_boxes", "gt_classes"):
+            np.testing.assert_array_equal(kw[key][0], ref_kw[key][0])
+
+
+def test_test_cli_refuses_retina(tiny, monkeypatch):
+    monkeypatch.chdir(tiny.root)
+    ckpt_lib.freeze_run_config(dict(tiny.cfg, retina={}),
+                               tiny.root / "runs" / "ret")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+        test_cli.main(["--run", "ret", "--val", "--device", "cpu"])
+
+
+def test_import_checkpoint_round_trip(tiny, monkeypatch):
+    """A reference trainer's checkpoint file -> runs/<name>/ -> the same
+    forward, bit for bit, through the test CLI's restore."""
+    monkeypatch.chdir(tiny.root)
+    model = build_model(tiny.cfg).eval()
+    model.load_state_dict(random_state_dict(model, 9))
+    torch.save({"epoch": 12, "metric_max_val": 0.25,
+                "model_state_dict": model.state_dict(),
+                "optimizer_state_dict": {"state": {}}},
+               tiny.root / "reference.pt")
+    cfg_path = tiny.root / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(dict(tiny.cfg,
+                                            experiment_name="tinyexp")))
+    target = import_checkpoint.main(["--checkpoint",
+                                     str(tiny.root / "reference.pt"),
+                                     "--config", str(cfg_path)])
+    run = tiny.root / "runs" / "imported_tinyexp"
+    assert target == run / "model_best_0.250.pt"
+    assert load_json(run / "config.json")["experiment_name"] == \
+        "imported_tinyexp"
+    tester = test_cli.Tester(argparse.Namespace(
+        run="imported_tinyexp", val=True, last=False, full_labeled=False,
+        save_preds=False, save_attn_map=False, data_dir=None,
+        device="cpu"))
+    with torch.inference_mode():
+        want = model(torch.from_numpy(tiny.x))
+        got = tester._model(torch.from_numpy(tiny.x))
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    fresh = build_model(tiny.cfg)
+    from transoar_tpu_torch.training.train_state import make_optimizer
+
+    optimizer, scheduler = make_optimizer(fresh, tiny.cfg)
+    epoch, best = ckpt_lib.restore_checkpoint(target, fresh, optimizer,
+                                              scheduler)
+    assert (epoch, best) == (12, 0.25) and not optimizer.state
+
+    bad = dict(model.state_dict())
+    bad.pop("_query_embed.weight")
+    torch.save(bad, tiny.root / "bare.pt")
+    with pytest.raises(RuntimeError, match="_query_embed.weight"):
+        import_checkpoint.main(["--checkpoint", str(tiny.root / "bare.pt"),
+                                "--config", str(cfg_path), "--name", "x"])

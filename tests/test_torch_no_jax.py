@@ -1,5 +1,7 @@
 """The port never imports jax, flax or the JAX package: every module of
-transoar_tpu_torch, ``chip_smoke.py`` and ``scripts/profile_torch_serving.py``
+transoar_tpu_torch (its CLIs ``train``, ``test``, ``predict``,
+``prepare_dataset_amos``, ``prepare_dataset_visceral`` and
+``import_checkpoint`` included), ``chip_smoke.py`` and the port's scripts
 import in a fresh interpreter where all three are blocked, and no import
 statement anywhere in their sources (function bodies included) names
 ``transoar_tpu``."""
@@ -26,6 +28,14 @@ for i, path in enumerate(%r):
     spec = importlib.util.spec_from_file_location(f"script{i}", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("transoar_tpu_torch.predict", "transoar_tpu_torch.train",
+             "transoar_tpu_torch.test",
+             "transoar_tpu_torch.prepare_dataset_amos",
+             "transoar_tpu_torch.prepare_dataset_visceral",
+             "transoar_tpu_torch.import_checkpoint",
+             "transoar_tpu_torch.native.native_loader",
+             "transoar_tpu_torch.utils.visualization",
+             "transoar_tpu_torch.data.preprocessor",
+             "transoar_tpu_torch.data.transforms",
              "transoar_tpu_torch.ops.kernels.packed_conv",
              "transoar_tpu_torch.ops.kernels.window_attention",
              "transoar_tpu_torch.ops.kernels.conv2d",

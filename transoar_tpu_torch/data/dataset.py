@@ -2,16 +2,19 @@
 ``transoar_tpu/data/dataset.py``'s numpy loader; the tests pin it).
 
 Layout ``dataset/<name>/<split>/<case>/{data,label}.npy``, as the reference.
-The loader only stacks numpy arrays; the boxes are derived from the labels
+The loaders only stack numpy arrays; the boxes are derived from the labels
 on the device in the train step (``training/trainer.derive_targets``).
 Layout is channels-last ``[S0, S1, S2, 1]``.
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 class TransoarDataset:
@@ -31,6 +34,18 @@ class TransoarDataset:
 
     def __len__(self):
         return len(self._cases)
+
+    @property
+    def cases(self):
+        return list(self._cases)
+
+    @property
+    def path(self):
+        return self._path
+
+    @property
+    def overfit(self):
+        return self._overfit
 
     def __getitem__(self, idx):
         if self._overfit:  # reference dataset.py:28-29
@@ -79,14 +94,24 @@ class Loader:
             }
 
 
-def get_loader(config, split, data_dir=None):
-    """Reference-compatible entry point: the in-process loader over
+def get_loader(config, split, data_dir=None, batch_size=None):
+    """Reference-compatible entry point: a loader over
     ``<data_dir or ./dataset>/<config['dataset']>/<split>`` at the config's
-    batch size (shuffled, seeded per epoch from the config's seed, for the
-    train split). ``trainer.num_workers`` is accepted and not used: the JAX
-    package's threaded C++ loader is not ported."""
+    batch size (or ``batch_size``), shuffled and seeded per epoch from the
+    config's seed for the train split. With ``trainer.num_workers > 0`` it
+    is the native C++ loader with that many reader threads (built with
+    ``g++`` at first use; a failed build raises), else the Python loader."""
     tcfg = config["trainer"]
+    batch_size = batch_size or tcfg["batch_size"]
     shuffle = split == "train" and tcfg.get("shuffle", True)
     dataset = TransoarDataset(config, split, data_dir=data_dir)
-    return Loader(dataset, tcfg["batch_size"], shuffle=shuffle,
-                  seed=config.get("seed", 0))
+    seed = config.get("seed", 0)
+    num_workers = int(tcfg.get("num_workers", 0))
+    if num_workers > 0:
+        from transoar_tpu_torch.native.native_loader import NativeLoader
+
+        logger.info("%s loader: native, %d threads", split, num_workers)
+        return NativeLoader(dataset, batch_size, shuffle=shuffle, seed=seed,
+                            n_threads=num_workers)
+    logger.info("%s loader: python", split)
+    return Loader(dataset, batch_size, shuffle=shuffle, seed=seed)

@@ -111,9 +111,13 @@ class FocusedAttn(nn.Module):
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bias: torch.Tensor, roi=None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                return_weights: bool = False):
         """q [B, Q, C]; k, v [B, S, C]; bias [organs, S] f32;
-        roi: optional (idx [organs, T] long, valid [organs, T] bool)."""
+        roi: optional (idx [organs, T] long, valid [organs, T] bool).
+        With ``return_weights`` also the attention weights over the full
+        token axis [B, H, Q, S] (the RoI path scatters each organ's crop
+        back onto it, f32)."""
         B, Q, C = q.shape
         H, hd = self.num_heads, C // self.num_heads
         O = self.num_organs
@@ -135,14 +139,24 @@ class FocusedAttn(nn.Module):
             logits = logits.float() + pad_bias[None, None, :, None, :]
             attn = logits.softmax(-1).to(self.dtype)
             out = torch.einsum("bhoqt,bothd->boqhd", attn, v_r)
+            weights = None
+            if return_weights:
+                weights = attn.new_zeros((B, H, O, qpo, kh.shape[1]),
+                                         dtype=torch.float32)
+                organ, slot = valid.nonzero(as_tuple=True)
+                weights[:, :, organ, :, idx[organ, slot]] = \
+                    attn[:, :, organ, :, slot].float()
+                weights = weights.view(B, H, Q, -1)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
             logits = logits.view(B, H, O, qpo, -1).float() \
                 + bias[None, None, :, None, :]
             attn = logits.softmax(-1).to(self.dtype).view(B, H, Q, -1)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, vh)
-        return dropout(self.proj(out.reshape(B, Q, C)),
-                       self.PROJ_DROP if self.training else 0.0, generator)
+            weights = attn
+        out = dropout(self.proj(out.reshape(B, Q, C)),
+                      self.PROJ_DROP if self.training else 0.0, generator)
+        return (out, weights) if return_weights else out
 
 
 class FocusedDecoderLayer(nn.Module):
@@ -166,16 +180,24 @@ class FocusedDecoderLayer(nn.Module):
         self.norm3 = LayerNorm(d_model, dtype=dtype)
 
     def forward(self, tgt, query_pos, src, src_pos, bias, roi=None,
-                generator=None):
+                generator=None, return_weights=False):
+        """The layer's output, or (output, cross-attention weights
+        [B, H, Q, S], self-attention weights [B, Q, Q]) with
+        ``return_weights``."""
         p = self.dropout if self.training else 0.0
         q = tgt + query_pos
-        sa = self.self_attn(q, q, tgt, generator)
+        sa = self.self_attn(q, q, tgt, generator, return_weights)
+        if return_weights:
+            sa, self_weights = sa
         tgt = self.norm2(tgt + dropout(sa, p, generator))
         ca = self.cross_attn(tgt + query_pos, src + src_pos, src, bias, roi,
-                             generator)
+                             generator, return_weights)
+        if return_weights:
+            ca, weights = ca
         tgt = self.norm1(tgt + dropout(ca, p, generator))
-        return feed_forward(tgt, self.linear1, self.linear2, self.norm3, p,
-                            generator)
+        tgt = feed_forward(tgt, self.linear1, self.linear2, self.norm3, p,
+                           generator)
+        return (tgt, weights, self_weights) if return_weights else tgt
 
 
 class FocusedDecoder(nn.Module):
@@ -213,9 +235,13 @@ class FocusedDecoder(nn.Module):
 
     def forward(self, src: torch.Tensor, query_embed: torch.Tensor,
                 pos: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                return_weights: bool = False):
         """src/pos [B, S0, S1, S2, C]; query_embed [Q, 2C]
-        -> hs [L, B, Q, C]."""
+        -> hs [L, B, Q, C], or (hs, {"cross": [B, H, Q, S], "self":
+        [B, Q, Q]}) with the last layer's attention weights when
+        ``return_weights`` (the reference's hooks on ``decoder.layers[-1]``,
+        scripts/test.py:74-84)."""
         B, C = src.shape[0], src.shape[-1]
         src = src.reshape(B, -1, C)
         pos = pos.reshape(B, -1, C)
@@ -224,9 +250,16 @@ class FocusedDecoder(nn.Module):
         tgt = tgt.to(self.dtype).expand(B, *tgt.shape)
         roi = (self.roi_idx, self.roi_valid) if self.use_roi else None
 
+        layers = self.decoder["layers"]
         intermediate = []
-        for layer in self.decoder["layers"]:
+        for i, layer in enumerate(layers):
+            last = return_weights and i == len(layers) - 1
             tgt = layer(tgt, query_pos, src, pos, self.attn_bias, roi,
-                        generator)
+                        generator, last)
+            if last:
+                tgt, cross, self_weights = tgt
             intermediate.append(tgt)
-        return torch.stack(intermediate)
+        hs = torch.stack(intermediate)
+        if return_weights:
+            return hs, {"cross": cross, "self": self_weights}
+        return hs

@@ -277,7 +277,10 @@ class MultiHeadSelfAttention(nn.Module):
         nn.init.zeros_(self.in_proj_bias)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                return_weights: bool = False):
+        """The output, or (output, head-averaged f32 weights [B, Q, K]) with
+        ``return_weights``, torch ``MultiheadAttention``'s convention."""
         C = q.shape[-1]
         H, hd = self.num_heads, C // self.num_heads
         w = self.in_proj_weight.to(self.dtype)
@@ -293,5 +296,6 @@ class MultiHeadSelfAttention(nn.Module):
         attn = attn.float().softmax(-1).to(self.dtype)
         attn = dropout(attn, self.dropout if self.training else 0.0,
                        generator)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).flatten(-2)
-        return self.out_proj(out)
+        out = self.out_proj(torch.einsum("bhqk,bkhd->bqhd", attn,
+                                         vh).flatten(-2))
+        return (out, attn.float().mean(1)) if return_weights else out

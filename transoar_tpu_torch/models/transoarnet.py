@@ -68,17 +68,22 @@ class TransoarNet(nn.Module):
                     module.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                return_weights: bool = False) -> Dict[str, torch.Tensor]:
         """x [B, S0, S1, S2, C_in] -> pred_logits [B, Q, 1],
         pred_boxes [B, Q, 6] and, with aux_loss, aux_logits [L-1, B, Q, 1],
         aux_boxes [L-1, B, Q, 6]; all f32. In ``train()`` mode the neck's
         dropout masks and the Swin stages' DropPath masks come from
-        ``generator``."""
+        ``generator``. With ``return_weights`` also the last decoder layer's
+        ``attn_weights`` [B, H, Q, S] and ``self_attn_weights`` [B, Q, Q] and
+        the neck's input ``backbone_fmap`` (f32), for the attention-map
+        export of ``test.py --save_attn_map``."""
         src = self._backbone(x, generator)[self.input_level]
         pos = self._pos_enc(src)
-        hs = self._neck(src, self._query_embed.weight, pos,
-                        generator)  # [L, B, Q, C]
+        hs = self._neck(src, self._query_embed.weight, pos, generator,
+                        return_weights)  # [L, B, Q, C]
+        if return_weights:
+            hs, weights = hs
         logits = self._cls_head(hs).float()
         raw = self._reg_head(hs).float()
         boxes = (torch.tanh(raw) * self.restrictions
@@ -87,6 +92,10 @@ class TransoarNet(nn.Module):
         if self.aux_loss:
             out["aux_logits"] = logits[:-1]
             out["aux_boxes"] = boxes[:-1]
+        if return_weights:
+            out["attn_weights"] = weights["cross"]
+            out["self_attn_weights"] = weights["self"]
+            out["backbone_fmap"] = src.float()
         return out
 
 
@@ -134,5 +143,6 @@ def build_model(config, dtype: Optional[torch.dtype] = None, device=None,
     otherwise TransoarNet."""
     if "retina" in config:
         raise NotImplementedError(
-            "RetinaNet is not ported yet: ROADMAP Queue 1, RetinaNet")
+            "RetinaNet is not ported yet: ROADMAP Queue 1, item 6 "
+            "(RetinaNet / Retina U-Net)")
     return build_transoarnet(config, dtype, device, generator)

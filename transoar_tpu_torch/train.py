@@ -34,8 +34,9 @@ from transoar_tpu_torch.utils.io import (get_config, set_root_logger,
 logger = logging.getLogger(__name__)
 
 
-def train(config, args):
-    """Build everything from ``config`` and train; returns the Trainer."""
+def train(config, args, **trainer_options):
+    """Build everything from ``config`` and train; returns the Trainer.
+    ``trainer_options`` go to the Trainer (its measurement options)."""
     device = torch.device(args.device)
     train_loader = get_loader(config, "train", data_dir=args.data_dir)
     val_split = "train" if config.get("overfit") else "val"
@@ -67,7 +68,7 @@ def train(config, args):
 
     trainer = Trainer(config, model, train_loader, val_loader, path_to_run,
                       device, optimizer, scheduler, start_epoch=epoch,
-                      metric_start_val=metric_start_val)
+                      metric_start_val=metric_start_val, **trainer_options)
     trainer.run()
     return trainer
 

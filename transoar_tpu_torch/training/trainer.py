@@ -2,8 +2,12 @@
 
 - ``derive_targets``: per-organ boxes from the segmentation batch, on the
   device (``utils/boxes.segmentation2bbox``).
-- ``make_train_step``: undo the transfer compression, the intensity window
-  (when the config has ``foreground_voxel_statistics``), targets, forward
+- ``make_train_step``: undo the transfer compression; with
+  ``augmentation.on_device: true`` the window and the augmentation on the
+  card (``data/transforms.augment_batch``, draws from the step's
+  generator), with host augmentation nothing (the host windowed the
+  batch), else the intensity window (when the config has
+  ``foreground_voxel_statistics``); then targets, forward
   (dropout masks from the step's generator), criterion, ``total_loss``,
   backward, global-norm clipping, then AdamW and the schedule. With
   ``trainer.nan_guard: skip`` a non-finite loss drops the update, the
@@ -14,14 +18,18 @@
   equality with plain batching its tests pin).
 - ``make_eval_step``: the same up to the losses, without gradients; returns
   losses, predictions and targets.
-- ``Trainer``: host batches compressed for the copy (image bf16 unless
+- ``Trainer``: with ``use_augmentation: true, on_device: false`` the train
+  loader is wrapped in ``HostAugmentingLoader`` (``trainer.num_workers``
+  threads, 8 if 0, with as many cases in flight beyond the batch handed
+  out; ``_host_ahead=0`` keeps none, the JAX package's design, for
+  measuring the two against each other); host batches compressed for the copy (image bf16 unless
   ``trainer.h2d_dtype`` or ``precision`` says f32, seg int8), copied from
   pinned memory on a copy stream, two batches ahead of the step, so the
   copies overlap the step on the compute stream; loss scalars stay on the
   device and are read once per epoch; validation with the evaluator, the
   best checkpoint on ``mAP_coco`` and ``model_last`` every epoch. Each
   epoch's history holds the train loop's wall time, loader included, and
-  the volumes it stepped.
+  the volumes it stepped; ``Trainer.clock`` where the loop's time went.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from transoar_tpu_torch.data.transforms import eval_transform
+from transoar_tpu_torch.data.transforms import (HostAugmentingLoader,
+                                                 augment_batch,
+                                                 eval_transform)
 from transoar_tpu_torch.eval.evaluator import build_evaluator
 from transoar_tpu_torch.models.criterion import build_criterion, total_loss
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
@@ -55,11 +65,12 @@ def derive_targets(seg, num_classes, bbox_padding=1):
     return {"boxes": boxes, "present": present, "seg": seg}
 
 
-def _check_augmentation(config):
-    if config.get("augmentation", {}).get("use_augmentation"):
-        raise NotImplementedError(
-            "augmentation.use_augmentation: true is not ported yet: ROADMAP "
-            "Queue 1, item 2 (augmentation); set it to false")
+def _augmentation_mode(config):
+    """None, "host" or "device"."""
+    aug = config.get("augmentation", {})
+    if not aug.get("use_augmentation"):
+        return None
+    return "device" if aug.get("on_device", False) else "host"
 
 
 def _prepare(batch, stats):
@@ -75,18 +86,27 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
     """``step(batch) -> {loss name: device scalar}``; ``batch`` holds the
     device tensors ``image`` [B, S0, S1, S2, 1] and ``seg`` [B, S0, S1, S2].
     The step leaves the model's train/eval mode as it finds it."""
-    _check_augmentation(config)
     tcfg = config["trainer"]
     coefs = config["loss_coefs"]
     num_classes = config["neck"]["num_organs"]
     padding = config.get("bbox_padding", 1)
     stats = config.get("foreground_voxel_statistics")
+    mode = _augmentation_mode(config)
+    if mode == "device" and generator is None:
+        raise ValueError("augmentation.on_device: true draws from the "
+                         "step's generator: pass one")
+    aug_cfg = config.get("augmentation", {})
     clip = float(tcfg.get("clip_max_norm", -1))
     nan_guard = tcfg.get("nan_guard", "off")
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch):
-        image, seg = _prepare(batch, stats)
+        if mode == "device":
+            image, seg = augment_batch(batch["image"].float(),
+                                       batch["seg"].long(), generator,
+                                       aug_cfg, intensity_stats=stats)
+        else:  # the host augmenter already windowed its batches
+            image, seg = _prepare(batch, None if mode == "host" else stats)
         targets = derive_targets(seg, num_classes, padding)
         out = model(image, generator=generator)
         losses = criterion(out, targets, model.anchors)
@@ -124,29 +144,48 @@ def make_eval_step(model, criterion, config):
 
 
 class _StepClock:
-    """Per-step times: CUDA events on the card (read after the epoch's one
-    sync), the host clock on the CPU."""
+    """Where the train loop's time goes, step by step.
+
+    ``ms``: each step's event time, CUDA events around it on the card (read
+    after the epoch's one sync; they also hold any time the card waits for
+    the host's enqueue, so they are no device busy time), the host clock
+    on the CPU. On the host clock, for every device: ``start_s`` (when each
+    step began), ``step_host_ms`` (the step's call), ``loader_ms`` (the
+    loop waiting for each batch from its loader) and ``copy_ms`` (the
+    batch's cast, pinning and copy enqueue)."""
 
     def __init__(self, device):
         self._cuda = device.type == "cuda"
         self._marks = []
         self.ms = []
+        self.start_s, self.step_host_ms = [], []
+        self.loader_ms, self.copy_ms = [], []
+
+    def batch(self, asked, got, copied):
+        """A batch's host times: asked the loader, got it, enqueued its
+        copy (``time.perf_counter`` readings)."""
+        self.loader_ms.append(1e3 * (got - asked))
+        self.copy_ms.append(1e3 * (copied - got))
 
     def start(self):
+        now = time.perf_counter()
+        self.start_s.append(now)
         if self._cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self._marks.append([ev])
         else:
-            self._marks.append([time.perf_counter()])
+            self._marks.append([now])
 
     def stop(self):
+        now = time.perf_counter()
+        self.step_host_ms.append(1e3 * (now - self.start_s[-1]))
         if self._cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self._marks[-1].append(ev)
         else:
-            self._marks[-1].append(time.perf_counter())
+            self._marks[-1].append(now)
 
     def collect(self):
         """Move the finished steps' times into ``ms`` (after a sync)."""
@@ -159,18 +198,24 @@ class _StepClock:
 class Trainer:
     def __init__(self, config, model, train_loader, val_loader, path_to_run,
                  device="cuda", optimizer=None, scheduler=None,
-                 start_epoch=0, metric_start_val=0.0):
-        _check_augmentation(config)
+                 start_epoch=0, metric_start_val=0.0, _host_ahead=None):
         self._config = config
         self._device = torch.device(device)
         self._model = model
+        tcfg = config["trainer"]
+        if _augmentation_mode(config) == "host":
+            workers = int(tcfg.get("num_workers", 8) or 8)
+            train_loader = HostAugmentingLoader(
+                train_loader, config["augmentation"],
+                intensity_stats=config.get("foreground_voxel_statistics"),
+                seed=config.get("seed", 0), workers=workers,
+                ahead=workers if _host_ahead is None else _host_ahead)
         self._train_loader = train_loader
         self._val_loader = val_loader
         self._path_to_run = Path(path_to_run)
         self._epoch_to_start = start_epoch
         self._metric_max_val = metric_start_val
         self._main_metric_key = "mAP_coco"
-        tcfg = config["trainer"]
         for key in ("microbatch", "steps_per_dispatch", "xla_options"):
             if tcfg.get(key):
                 logger.info("trainer.%s=%r: plain batching on this device",
@@ -229,12 +274,21 @@ class Trainer:
                 v.record_stream(stream)
         return batch
 
-    def _prefetch(self, loader, depth=3):
+    def _prefetch(self, loader, depth=3, clock=None):
         """Keep ``depth`` batches copied or in flight: the copies of the
-        next two batches run on the copy stream beside the current step."""
+        next two batches run on the copy stream beside the current step.
+        ``clock`` gets each batch's host times."""
         buf = collections.deque()
-        for batch in loader:
+        batches = iter(loader)
+        while True:
+            asked = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            got = time.perf_counter()
             buf.append(self._device_batch(batch))
+            if clock is not None:
+                clock.batch(asked, got, time.perf_counter())
             if len(buf) >= depth:
                 yield self._ready(*buf.popleft())
         while buf:
@@ -244,7 +298,8 @@ class Trainer:
     def _train_one_epoch(self, epoch):
         self._model.train()
         step_losses, volumes = [], 0
-        for device_batch in self._prefetch(self._train_loader):
+        for device_batch in self._prefetch(self._train_loader,
+                                           clock=self.clock):
             self.clock.start()
             step_losses.append(self._train_step(device_batch))
             self.clock.stop()
