@@ -50,16 +50,18 @@ each printing a line; any failure exits non-zero before the result lines:
    over the FP32 rate, the larger; printed only, not in the result line);
 6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain,
    the generic kernel and cuDNN on one shape;
-7. small models, CPU vs card: tiny f32 flagship-shaped and Swin-shaped
-   models with the same seeded weights on the CPU (plain versions) and on
-   the card (kernels), TF32 off; logits within 1e-3, boxes within 1e-4;
-   the Swin model launches the window forward twice per Swin stage;
-8. small train steps, CPU vs card: the same tiny models at batch 2, f32,
-   in eval() mode (no dropout or DropPath); loss rtol 1e-4, per-tensor
-   gradient rel-L2 < 1e-3, the AdamW step's deltas within rtol 0.05 /
-   atol 0.25 x lr; the card's step launches forward 4 / dx 1 / dw 2 of the
-   band conv (remat recomputes stage 0) and, in the Swin model, the window
-   forward and backward twice per Swin stage each;
+7. small models, CPU vs card: tiny f32 flagship-, Swin-, seg-proxy-,
+   refine-, DETR- and Deformable-DETR-shaped models (``presets``) with the
+   same seeded weights on the CPU (plain versions) and on the card
+   (kernels), TF32 off; logits and pred_seg within 1e-3, boxes within
+   1e-4; the Swin model launches the window forward twice per Swin stage;
+8. small train steps, CPU vs card: the flagship, Swin, DETR and
+   Deformable-DETR tiny models at batch 2, f32, in eval() mode (no dropout
+   or DropPath); loss rtol 1e-4, per-tensor gradient rel-L2 < 1e-3, the
+   AdamW step's deltas within rtol 0.05 / atol 0.25 x lr; the card's step
+   launches forward 4 / dx 1 / dw 2 of the band conv (remat recomputes
+   stage 0) and, in the Swin model, the window forward and backward twice
+   per Swin stage each;
 9. serving: the full-width foc_dec_amos model (256x256x128, bf16, seeded
    random weights) saved as a run directory, then
    ``transoar_tpu_torch.predict.main`` on three synthetic NIfTI volumes off
@@ -111,7 +113,19 @@ each printing a line; any failure exits non-zero before the result lines:
    case (and 8 window forwards a Swin case); then the tiny f32 flagship's
    ``return_weights=True`` forward, card against CPU: attention weights
    within 1e-3; and the host augmentation alone (no training beside it)
-   on 1, 4 and 8 threads over 16 cases, in cases/s.
+   on 1, 4 and 8 threads over 16 cases, in cases/s;
+16. families: foc_dec_seg_amos, foc_dec_refine_amos, detr_amos and
+   def_detr_amos as shipped at full width (256x256x128, bf16, seeded random
+   weights): ``predict.main`` on two volumes off the grid (15 detections
+   each, forward and request ms, 2 packed_conv launches a volume), then
+   ``train.train`` at batch 2 with host augmentation through the native
+   loader for 2 epochs of 3 steps over links to the flagship dataset's
+   train cases plus 3 validations: finite losses, moved parameters, per
+   step 4 / 1 / 2 band-conv launches, the step event median, peak memory
+   under 40 GiB on every path, and for the DETR necks the matcher's host
+   ms of every call (the copy of the cost to the host, which waits for the
+   forward, and the exact solve with the copy back);
+17. ``test.main --val`` on phase 16's def_detr_amos run.
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; every serving, training and test path also requires
@@ -120,8 +134,9 @@ training path every launch of its dw kernel, to have taken the wide or the
 fold variant, never the generic one, and every launch of the window
 kernels to have taken fwd_wg / bwd_wg (none on the flagship's paths).
 Then a line with each model's loop rates in every augmentation setting
-side by side and the host's core count, one JSON line of per-kernel
-results and, last, the device line
+side by side and the host's core count, one with phase 16's configs side
+by side, one JSON line of per-kernel results (each kernel's launches on
+every path) and, last, the device line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
@@ -176,6 +191,18 @@ SWIN_VOLUMES = [(170, 150, 240), (150, 172, 270)]
 SWIN_TRAIN_CASES, SWIN_VAL_CASES = 6, 2
 # window forward launches per Swin forward: 4 stages x 2 blocks
 SWIN_WINDOW_LAUNCHES = 8
+# phase 16: the shipped configs of the seg-proxy, refine, DETR and
+# Deformable-DETR families at full width (256x256x128, 15 organs, as
+# foc_dec_amos): two volumes served, then 2 epochs of 3 train steps; the
+# test CLI on the last one's run
+FAMILY_CONFIGS = ("foc_dec_seg_amos", "foc_dec_refine_amos", "detr_amos",
+                  "def_detr_amos")
+FAMILY_VOLUMES = VOLUME_SHAPES[:2]
+FAMILY_EPOCHS, FAMILY_STEPS = 2, 3
+# the tiny models of phase 7 (card vs CPU forward) and those of phase 8 (a
+# train step each)
+SMALL_MODELS = ("flagship", "swin", "seg", "refine", "detr", "def_detr")
+SMALL_TRAIN = ("flagship", "swin", "detr", "def_detr")
 # the card's published dense peaks (H100 SXM data sheet, 700 W)
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 # its f32 rate outside the tensor cores: 67 TFLOP/s counts an FMA as two,
@@ -751,10 +778,12 @@ def phase_conv2d():
 
 
 def _tiny(kind):
-    from transoar_tpu_torch.presets import tiny_flagship_config, \
-        tiny_swin_config
+    from transoar_tpu_torch.presets import (tiny_config,
+                                            tiny_flagship_config,
+                                            tiny_swin_config)
 
-    cfg = tiny_swin_config() if kind == "swin" else tiny_flagship_config()
+    cfg = (tiny_swin_config() if kind == "swin" else tiny_flagship_config()
+           if kind == "flagship" else tiny_config(kind))
     assert cfg["backbone"]["stage0_pack"] == 4
     swin = cfg["backbone"]["swin"]["depths"] \
         if cfg["backbone"].get("use_encoder_attn") else []
@@ -787,8 +816,11 @@ def phase_small_model(kind):
                  f"launches {launched}, want {want}")
         outs[device] = {k: v.cpu() for k, v in out.items()}
     errs = {}
-    for key, tol in (("pred_logits", 1e-3), ("aux_logits", 1e-3),
-                     ("pred_boxes", 1e-4), ("aux_boxes", 1e-4)):
+    if set(outs["cuda"]) != set(outs["cpu"]):
+        fail(f"small {kind} model outputs {sorted(outs['cuda'])} on the "
+             f"card, {sorted(outs['cpu'])} on the CPU")
+    for key in outs["cpu"]:
+        tol = 1e-4 if key.endswith("boxes") else 1e-3  # logits, pred_seg
         torch.testing.assert_close(outs["cuda"][key], outs["cpu"][key],
                                    rtol=0, atol=tol)
         errs[key] = (outs["cuda"][key] - outs["cpu"][key]).abs().max().item()
@@ -1418,6 +1450,18 @@ def _loop_summary(results):
           flush=True)
 
 
+def _family_summary(results):
+    """One line: phase 16's configs side by side (training: the step event
+    median, peak memory, the matcher's median solve ms)."""
+    summary = {name: {
+        "step_event_ms_median_after_first":
+            r["step_event_ms_median_after_first"],
+        "peak_memory_gib": r["peak_memory_gib"],
+        **({"matcher_solve_ms_median": r["matcher_host_ms"]["solve_median"]}
+           if "matcher_host_ms" in r else {})} for name, r in results.items()}
+    print(f"family summary: {json.dumps(summary)}", flush=True)
+
+
 def _attention_weights_check():
     """The tiny f32 flagship's return_weights=True forward on the card
     against the CPU (1e-3)."""
@@ -1443,50 +1487,110 @@ def _attention_weights_check():
     return errs
 
 
-def phase_test(root):
-    """test.main --val on the runs phases 11 and 13 trained, each with every
-    count at 0 before; finite mAPs in results_val.json; then the attention
-    weights on the card against the CPU. Returns the counts by path."""
+def _test_run(root, path, run, val, windows):
+    """test.main --val on runs/<run> with every count at 0 before; finite
+    mAPs in results_val.json and the path's launches; returns the counts."""
     from transoar_tpu_torch import test
     from transoar_tpu_torch.utils.io import load_json
 
-    counts_by_path = {}
-    for path, run, val, windows in (
-            ("test", "foc_dec_amos_smoke", VAL_CASES, 0),
-            ("swin_test", "swin_fpn_visceral_smoke", SWIN_VAL_CASES,
-             SWIN_WINDOW_LAUNCHES)):
-        cwd = os.getcwd()
-        os.chdir(root)
-        try:
-            _reset_launches()
-            t0 = time.perf_counter()
-            scores = test.main(["--run", run, "--val", "--data_dir",
-                                str(Path(root) / "dataset")])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            counts = _counts()
-        finally:
-            os.chdir(cwd)
-        written = load_json(Path(root) / "runs" / run / "results_val.json")
-        maps = {k: v for k, v in written.items() if k.startswith("mAP")}
-        if written != scores or not maps or \
-                not all(np.isfinite(v) for v in maps.values()):
-            fail(f"{path}: results_val.json {written}")
-        maps = {k: v for k, v in maps.items()
-                if not k.endswith("_")}  # per-organ keys end in "_"
-        want = {"packed_conv": 2 * val}
-        if windows:
-            want["fused_window_attention"] = windows * val
-        _check_launches(path, counts, want)
-        print(f"{path}: test.py --val on {run}, {val} cases in {secs:.1f} s; "
-              f"{json.dumps(maps)}; launches "
-              f"{json.dumps({k: v for k, v in counts.items() if v})}",
-              flush=True)
-        counts_by_path[path] = counts
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        scores = test.main(["--run", run, "--val", "--data_dir",
+                            str(Path(root) / "dataset")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        os.chdir(cwd)
+    written = load_json(Path(root) / "runs" / run / "results_val.json")
+    maps = {k: v for k, v in written.items() if k.startswith("mAP")}
+    if written != scores or not maps or \
+            not all(np.isfinite(v) for v in maps.values()):
+        fail(f"{path}: results_val.json {written}")
+    maps = {k: v for k, v in maps.items()
+            if not k.endswith("_")}  # per-organ keys end in "_"
+    want = {"packed_conv": 2 * val}
+    if windows:
+        want["fused_window_attention"] = windows * val
+    _check_launches(path, counts, want)
+    print(f"{path}: test.py --val on {run}, {val} cases in {secs:.1f} s; "
+          f"{json.dumps(maps)}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    return counts
+
+
+def phase_test(root):
+    """test.main --val on the runs phases 11 and 13 trained; then the
+    attention weights on the card against the CPU. Returns the counts by
+    path."""
+    counts_by_path = {
+        "test": _test_run(root, "test", "foc_dec_amos_smoke", VAL_CASES, 0),
+        "swin_test": _test_run(root, "swin_test", "swin_fpn_visceral_smoke",
+                               SWIN_VAL_CASES, SWIN_WINDOW_LAUNCHES)}
     errs = _attention_weights_check()
     print(f"test: tiny flagship return_weights=True, card vs CPU max abs "
           f"diff {json.dumps(errs)}", flush=True)
     return counts_by_path
+
+
+def phase_families(root, dataset):
+    """Each of FAMILY_CONFIGS at full width as shipped (seeded random
+    weights): predict.main on FAMILY_VOLUMES at batch 1, then train.train
+    at batch 2 (host augmentation, native loader) for FAMILY_EPOCHS epochs
+    of FAMILY_STEPS steps over links to the flagship dataset's train cases,
+    with a validation before and after each; the band conv's launches on
+    every path, peak memory under 40 GiB, and for the DETR necks the
+    matcher's host ms. Returns (counts by path, results by config)."""
+    from transoar_tpu_torch.presets import model_config
+
+    split = _long_split(root, dataset, BATCH * FAMILY_STEPS)
+    counts_by_path, results = {}, {}
+    for name in FAMILY_CONFIGS:
+        cfg = model_config(name)
+        records, counts, peak = _serve(cfg, name, FAMILY_VOLUMES)
+        path = f"{name}_serving"
+        _check_launches(path, counts,
+                        {"packed_conv": 2 * len(FAMILY_VOLUMES)})
+        if peak >= 40 * 2 ** 30:
+            fail(f"{path} peak memory {peak / 2 ** 30:.2f} GiB >= 40")
+        _serving_line(path, cfg, records, peak, counts)
+        counts_by_path[path] = counts
+
+        cfg = model_config(name, batch_size=BATCH)
+        aug = cfg["augmentation"]
+        if not aug["use_augmentation"] or aug["on_device"] or \
+                cfg["trainer"]["num_workers"] <= 0:
+            fail(f"{name} no longer ships host augmentation with loader "
+                 f"threads")
+        path = f"{name}_training"
+        trainer, counts, peak, run_s = _train(cfg, f"{name}_smoke", root,
+                                              split, FAMILY_EPOCHS)
+        case_ms = _check_loop(path, trainer, FAMILY_EPOCHS, "host")
+        _check_launches(path, counts, _want_training(
+            FAMILY_EPOCHS * FAMILY_STEPS,
+            (FAMILY_EPOCHS + 1) * (VAL_CASES // BATCH), 0))
+        if peak >= 40 * 2 ** 30:
+            fail(f"{path} peak memory {peak / 2 ** 30:.2f} GiB >= 40")
+        result = _training_result(trainer, FAMILY_EPOCHS, counts, peak,
+                                  run_s, case_ms)
+        clock = getattr(trainer._criterion, "clock", None)
+        if clock is not None:
+            # one call a train or val step, in the loop's order: the
+            # validation before the epochs, then each epoch's steps and
+            # its validation
+            result["matcher_host_ms"] = {
+                "calls": len(clock.solve_ms),
+                "wait": clock.wait_ms, "solve": clock.solve_ms,
+                "solve_median": statistics.median(clock.solve_ms)}
+        grid = "x".join(map(str, aug["patch_size"]))
+        print(f"{path}: {name} {grid} batch {BATCH} bf16, as shipped; "
+              f"{json.dumps(result)}", flush=True)
+        counts_by_path[path], results[name] = counts, result
+    return counts_by_path, results
 
 
 def _entry(name, replaces, launches, rows, path_rows,
@@ -1518,9 +1622,10 @@ def main():
     dx_rows, dw_rows = phase_backward()
     win_rows, win_bwd_rows = phase_window_kernels()
     conv2d_rows = phase_conv2d()
-    for kind in ("flagship", "swin"):
+    for kind in SMALL_MODELS:
         phase_small_model(kind)
-        phase_small_train(kind)
+        if kind in SMALL_TRAIN:
+            phase_small_train(kind)
     paths = {"serving": phase_serving()}
     with tempfile.TemporaryDirectory() as root:
         datasets = {"foc_dec_amos": phase_prepare(root)}
@@ -1542,7 +1647,13 @@ def main():
         paths.update(variant_counts)
         paths.update(phase_test(root))
         _host_aug_scaling(root, long_splits["foc_dec_amos"])
+        family_counts, family_results = phase_families(
+            root, datasets["foc_dec_amos"])
+        paths.update(family_counts)
+        paths["def_detr_amos_test"] = _test_run(
+            root, "def_detr_amos_test", "def_detr_amos_smoke", VAL_CASES, 0)
     _loop_summary(loop_results)
+    _family_summary(family_results)
     src = "transoar_tpu/ops/pallas/packed_conv.py"
     wsrc = "transoar_tpu/ops/pallas/window_attention.py"
     timed = [r for r in win_rows if "ms" in r]

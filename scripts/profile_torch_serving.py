@@ -5,8 +5,11 @@ on the card.
         [--steps 5] [--trace PATH]
 
 Builds a full-width model of transoar_tpu_torch (``--config foc_dec_amos``,
-the default: 256x256x128; or ``swin_fpn_visceral``: 160x160x256 with Swin
-stages 2-5), bf16 compute, seeded random weights, on the CUDA device, warms
+the default: 256x256x128; ``swin_fpn_visceral``: 160x160x256 with Swin
+stages 2-5; or, at 256x256x128, ``foc_dec_seg_amos`` (the seg proxy's
+full-resolution decoder and head), ``foc_dec_refine_amos`` (the deformable
+refine of P3-P5), ``detr_amos`` or ``def_detr_amos``), bf16 compute, seeded
+random weights, on the CUDA device, warms
 up, and then reports for ``--steps`` forwards of one volume (serving, batch
 1) or, with ``--train``, train steps at batch 2
 (``training.trainer.make_train_step``: forward with dropout and DropPath,
@@ -16,13 +19,20 @@ augmentation off, two synthetic cases):
 - wall ms per forward / step (host clock around work that ends in a
   synchronize);
 - device ms per module (CUDA events around each encoder stage, the FPN
-  decoder, the Focused Decoder neck and the box-regression head, summed
-  over a step's completed calls; in training an encoder stage's remat
-  recompute stops early and is not among them);
+  decoder (the refine included), the refine alone, the neck, the
+  box-regression head and the seg head, summed over a step's completed
+  calls; in training an encoder stage's remat recompute stops early and is
+  not among them);
 - kernel time by name from ``torch.profiler`` (device busy time, idle
   share = 1 - busy / wall): the 15 largest, and every one of the port's
-  own kernels (csrc/) with its ms and launches per forward / step; with
-  ``--trace``, a chrome trace.
+  own kernels (csrc/) with its ms and launches per forward / step; the 15
+  aten ops with the most device time under them (kernels they launch,
+  nested ops' included: ``aten::grid_sampler_3d`` and its backward, the
+  attention's ``aten::bmm``, ``aten::cudnn_convolution``...); with
+  ``--trace``, a chrome trace;
+- with ``--train`` and a DETR neck, the exact matcher's host ms per step
+  (``SetCriterion.clock``: the cost's copy to the host, which waits for the
+  forward, and the solve with the copy back).
 
 Needs one CUDA card; imports no jax.
 """
@@ -46,8 +56,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from transoar_tpu_torch.data.synthetic import make_case  # noqa: E402
 from transoar_tpu_torch.models.criterion import build_criterion  # noqa: E402
 from transoar_tpu_torch.models.transoarnet import build_model  # noqa: E402
-from transoar_tpu_torch.presets import (flagship_config,  # noqa: E402
-                                        swin_fpn_config)
+from transoar_tpu_torch.presets import model_config  # noqa: E402
 from transoar_tpu_torch.training.train_state import (  # noqa: E402
     make_optimizer)
 from transoar_tpu_torch.training.trainer import make_train_step  # noqa: E402
@@ -57,8 +66,8 @@ from transoar_tpu_torch.utils.weights import random_state_dict  # noqa: E402
 # the kernels of csrc/packed_conv.cu and csrc/window_attention.cu, by name
 PORT_KERNEL = re.compile(r"::((?:(?:conv|dw)_(?:wide|fold|mma|fma)|dw_reduce"
                          r"|(?:fwd|bwd)_(?:mma|fma|wg)|dbias_reduce)(?:<\d+>)?)\(")
-CONFIGS = {"foc_dec_amos": flagship_config,
-           "swin_fpn_visceral": swin_fpn_config}
+CONFIGS = ("foc_dec_amos", "swin_fpn_visceral", "foc_dec_seg_amos",
+           "foc_dec_refine_amos", "detr_amos", "def_detr_amos")
 
 
 def _timed_modules(model):
@@ -68,8 +77,12 @@ def _timed_modules(model):
     mods = {f"encoder.stage{i}": m
             for i, m in enumerate(model._backbone._encoder._stages)}
     mods["fpn_decoder"] = model._backbone._decoder
+    if hasattr(model._backbone._decoder, "_refine"):
+        mods["refine"] = model._backbone._decoder._refine
     mods["neck"] = model._neck
     mods["reg_head"] = model._reg_head
+    if hasattr(model, "_seg_head"):
+        mods["seg_head"] = model._seg_head
     events = {name: [] for name in mods}
     pending = {}
 
@@ -117,16 +130,18 @@ def _training(cfg, model):
              "seg": torch.as_tensor(np.stack([c[1] for c in cases])).to(
                  "cuda", torch.int8)}
     optimizer, scheduler = make_optimizer(model, cfg, 1)
-    step = make_train_step(model, build_criterion(cfg), optimizer,
-                           scheduler, cfg,
+    criterion = build_criterion(cfg)
+    step = make_train_step(model, criterion, optimizer, scheduler, cfg,
                            torch.Generator(device="cuda").manual_seed(0))
-    return lambda: step(batch)
+    run = lambda: step(batch)  # noqa: E731
+    run.criterion = criterion
+    return run
 
 
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default="foc_dec_amos",
-                        choices=sorted(CONFIGS),
+                        choices=CONFIGS,
                         help="Which full-width model to profile.")
     parser.add_argument("--train", action="store_true",
                         help="Profile the batch-2 train step instead.")
@@ -140,7 +155,7 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi)
 
-    cfg = CONFIGS[args.config](batch_size=2 if args.train else 1)
+    cfg = model_config(args.config, batch_size=2 if args.train else 1)
     cfg["augmentation"]["use_augmentation"] = False
     model = build_model(cfg, device="cpu")
     model.load_state_dict(random_state_dict(model, 0))
@@ -184,7 +199,15 @@ def main():
     wall = statistics.median(walls)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     ours = [e for e in kernels if PORT_KERNEL.search(e.key)]
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)[:15]
     unit = "step" if args.train else "forward"
+    clock = getattr(getattr(run, "criterion", None), "clock", None)
+    matcher = None if clock is None else {
+        "calls": len(clock.solve_ms),
+        "wait_ms_median": statistics.median(clock.wait_ms),
+        "solve_ms_median": statistics.median(clock.solve_ms)}
     print(json.dumps({
         "device": smi,
         "config": args.config,
@@ -202,6 +225,10 @@ def main():
             PORT_KERNEL.search(e.key).group(1): [
                 e.self_device_time_total / 1e3 / args.steps,
                 e.count // args.steps] for e in ours},
+        f"top_ops_device_ms_per_{unit}": [
+            [e.key, e.device_time_total / 1e3 / args.steps,
+             e.count // args.steps] for e in ops],
+        "matcher_host_ms": matcher,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }, indent=1))
 

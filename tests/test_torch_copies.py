@@ -338,3 +338,11 @@ def test_visualization_writers_match(tmp_path):
                                     np.array([1]), seg, tmp_path / name, 3)
         mod.save_attn_visualization(out, cfg, tmp_path / name, 3, seg=seg)
     _same_files(tmp_path / "ours", tmp_path / "ref")
+    # the DETR necks' export: head-averaged [Q, S] weights, softmax classes
+    detr = {"attn_weights": rng.uniform(size=(1, 10, 256)).astype(np.float32),
+            "pred_logits": rng.normal(size=(1, 10, 3)).astype(np.float32)}
+    for mod, name in ((visualization, "ours_detr"),
+                      (jvisualization, "ref_detr")):
+        mod.save_attn_visualization(detr, cfg, tmp_path / name, 4, seg=seg)
+    _same_files(tmp_path / "ours_detr", tmp_path / "ref_detr")
+    assert len(list((tmp_path / "ours_detr").rglob("*.png"))) == 2 * 7 * 2

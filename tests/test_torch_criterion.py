@@ -168,11 +168,25 @@ def test_criterion_gradient_flows_to_the_outputs(rng):
 
 @pytest.mark.parametrize("change,item", [
     (lambda c: c.update(retina={}), "RetinaNet"),
-    (lambda c: c["neck"].update(name="detr"), "deformable"),
-    (lambda c: c["backbone"].update(use_seg_proxy_loss=True), "seg proxy"),
 ])
 def test_unported_criteria_raise(change, item):
     cfg = tiny_config()
     change(cfg)
     with pytest.raises(NotImplementedError, match=item):
         tcrit.build_criterion(cfg)
+
+
+@pytest.mark.parametrize("change,kind,seg", [
+    (lambda c: c["neck"].update(name="detr"), "SetCriterion", False),
+    (lambda c: c["neck"].update(name="def_detr"), "SetCriterion", False),
+    (lambda c: c["backbone"].update(use_seg_proxy_loss=True), "Criterion",
+     True),
+])
+def test_criterion_dispatch(change, kind, seg):
+    """The DETR necks take the set criterion, the seg proxy the focused one
+    with its seg losses (both raised before their port)."""
+    cfg = tiny_config()
+    change(cfg)
+    crit = tcrit.build_criterion(cfg)
+    assert type(crit).__name__ == kind
+    assert getattr(crit, "seg_proxy", False) == seg

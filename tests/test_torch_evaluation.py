@@ -181,3 +181,33 @@ def test_import_checkpoint_round_trip(tiny, monkeypatch):
     with pytest.raises(RuntimeError, match="_query_embed.weight"):
         import_checkpoint.main(["--checkpoint", str(tiny.root / "bare.pt"),
                                 "--config", str(cfg_path), "--name", "x"])
+
+
+@pytest.mark.parametrize("family", ["refine", "seg", "detr", "def_detr"])
+def test_import_checkpoint_families(tiny, monkeypatch, family):
+    """The refine and the seg proxy import through the reference layout (a
+    strict load, then the same forward); the DETR necks, whose reference
+    branches this checkout lacks, refuse with a clear error."""
+    from transoar_tpu_torch.presets import tiny_config as port_tiny
+
+    monkeypatch.chdir(tiny.root)
+    cfg = dict(port_tiny(family), experiment_name=f"imp_{family}")
+    model = build_model(cfg).eval()
+    model.load_state_dict(random_state_dict(model, 5))
+    torch.save(model.state_dict(), tiny.root / f"{family}.pt")
+    cfg_path = tiny.root / f"{family}.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    args = ["--checkpoint", str(tiny.root / f"{family}.pt"),
+            "--config", str(cfg_path)]
+    if family in ("detr", "def_detr"):
+        with pytest.raises(ValueError, match=f"{family} neck"):
+            import_checkpoint.main(args)
+        return
+    target = import_checkpoint.main(args)
+    restored = build_model(cfg).eval()
+    restored.load_state_dict(ckpt_lib.load_checkpoint(target, "cpu"))
+    x = torch.from_numpy(tiny.x)
+    with torch.inference_mode():
+        want, got = model(x), restored(x)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

@@ -20,7 +20,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.helpers import tiny_config
-from tests.torch_parity import randomize
+from tests.torch_parity import init_params, randomize
 from transoar_tpu.models.transoarnet import build_transoarnet as build_jax
 from transoar_tpu.ops.pallas import packed_conv as jpacked
 from transoar_tpu.training.inference import inference as jax_inference
@@ -111,26 +111,59 @@ def test_decode_matches_jax(slice_run):
     np.testing.assert_allclose(scores[0], rs[0], atol=5e-5)
 
 
-def test_bridge_writes_every_parameter(slice_run):
-    sd = state_dict_from_jax(slice_run.params, slice_run.cfg)
-    expected = slice_run.port.state_dict()
-    assert set(sd) == set(expected)
-    for name, value in sd.items():
-        assert value.shape == expected[name].shape, name
+@pytest.fixture(scope="module")
+def families(slice_run):
+    """(cfg, seeded flax params, port model) of the flagship and of the
+    tiny refine (``use_decoder_attn``), seg-proxy, DETR and Deformable-DETR
+    models."""
+    out = {"flagship": (slice_run.cfg, slice_run.params, slice_run.port)}
+    x = np.zeros((1, *slice_run.cfg["augmentation"]["patch_size"], 1),
+                 np.float32)
+    for name in ("refine", "seg", "detr", "def_detr"):
+        cfg = tiny_config(precision="float32", seg_proxy=name == "seg")
+        cfg["backbone"]["use_decoder_attn"] = name == "refine"
+        if name in ("detr", "def_detr"):
+            cfg["neck"].update(name=name, anchor_offset_pred=False,
+                               num_queries=12, nheads=6)
+        if name == "def_detr":
+            cfg["neck"].update(feature_levels=["P2", "P3"], n_points=2)
+            cfg["backbone"]["out_fmaps"] = ["P2", "P3"]
+        params = init_params(build_jax(cfg), x, seed=4)
+        port = build_model(cfg).eval()
+        port.load_state_dict(state_dict_from_jax(params, cfg))
+        out[name] = (cfg, params, port)
+    return out
 
 
-def test_bridge_round_trip_through_reference_mapping(slice_run):
+def test_bridge_writes_every_parameter(families):
+    """The flagship, the refine, the seg head and both DETR necks."""
+    for family, (cfg, params, port) in families.items():
+        sd = state_dict_from_jax(params, cfg)
+        expected = port.state_dict()
+        assert set(sd) == set(expected), family
+        for name, value in sd.items():
+            assert value.shape == expected[name].shape, name
+    assert "_seg_head.weight" in families["seg"][2].state_dict()
+    assert "_backbone._decoder._refine.level_embed" in \
+        families["refine"][2].state_dict()
+
+
+def test_bridge_round_trip_through_reference_mapping(families):
     """port state_dict -> map_reference_state_dict onto an all-zero flax
-    tree gives back every JAX leaf exactly."""
-    sd = {k: v.numpy() for k, v in slice_run.port.state_dict().items()}
-    zeros = jax.tree.map(np.zeros_like, slice_run.params)
-    back = map_reference_state_dict(sd, zeros, slice_run.cfg)
-    flat_back = jax.tree_util.tree_leaves_with_path(back)
-    flat_ref = dict(jax.tree_util.tree_leaves_with_path(slice_run.params))
-    assert len(flat_back) == len(flat_ref)
-    for path, leaf in flat_back:
-        np.testing.assert_array_equal(np.asarray(leaf), flat_ref[path],
-                                      err_msg=jax.tree_util.keystr(path))
+    tree gives back every JAX leaf exactly, for the flagship, the refine
+    and the seg head (the reference layouts ``import_checkpoint`` reads)."""
+    for family in ("flagship", "refine", "seg"):
+        cfg, params, port = families[family]
+        sd = {k: v.numpy() for k, v in port.state_dict().items()}
+        zeros = jax.tree.map(np.zeros_like, params)
+        back = map_reference_state_dict(sd, zeros, cfg)
+        flat_back = jax.tree_util.tree_leaves_with_path(back)
+        flat_ref = dict(jax.tree_util.tree_leaves_with_path(params))
+        assert len(flat_back) == len(flat_ref), family
+        for path, leaf in flat_back:
+            np.testing.assert_array_equal(
+                np.asarray(leaf), flat_ref[path],
+                err_msg=f"{family} {jax.tree_util.keystr(path)}")
 
 
 def test_serving_cli_matches_jax_predict(slice_run, tmp_path, monkeypatch):

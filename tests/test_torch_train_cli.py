@@ -1,8 +1,8 @@
 """The port's train CLI on the CPU, on a tiny synthetic dataset: train ->
 checkpoints -> ``--auto_resume`` -> ``predict`` from the run directory;
 with the shipped augmentation setting (host, through the native loader)
-train -> ``test --val`` -> ``predict`` for the flagship and the SwinFPN;
-one step with ``on_device: true`` (``chip_smoke.py``'s training, test and
+train -> ``test --val`` -> ``predict`` for the flagship, the SwinFPN, the
+seg proxy, DETR and Deformable DETR; one step with ``on_device: true`` (``chip_smoke.py``'s training, test and
 on-device phases, rehearsed at tiny size)."""
 
 import argparse
@@ -17,7 +17,7 @@ from transoar_tpu_torch import predict, test, train
 from transoar_tpu_torch.data.synthetic import generate_dataset
 from transoar_tpu_torch.data.transforms import HostAugmentingLoader
 from transoar_tpu_torch.native.native_loader import NativeLoader
-from transoar_tpu_torch.presets import (tiny_flagship_config,
+from transoar_tpu_torch.presets import (tiny_config, tiny_flagship_config,
                                         tiny_swin_config, write_ct_volumes)
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training import trainer as trainer_lib
@@ -226,3 +226,35 @@ def test_on_device_augmentation_step(tmp_path, monkeypatch, restore_logging):
     assert calls == [trainer._generator]
     assert len(trainer.clock.ms) == 1
     assert np.isfinite(trainer.history[-1]["train"]["total"])
+
+
+@pytest.mark.parametrize("family", ["seg", "detr", "def_detr"])
+def test_family_train_test_predict(tmp_path, monkeypatch, restore_logging,
+                                   family):
+    """The seg proxy (its CE + dice in the losses) and both DETR necks (the
+    set criterion's one host match a step) as shipped -> checkpoint -> test
+    --val with the attention export (DETR's dense map per organ; Deformable
+    DETR has none) -> predict."""
+    cfg = tiny_config(family)
+    cfg["trainer"]["num_workers"] = 2
+    cfg, data_dir = _setup(tmp_path, monkeypatch, cfg, family, num_train=2)
+    trainer = train.main(["--config", _write(tmp_path / "f.yaml", cfg),
+                          "--device", "cpu"])
+    _check_host_augmented(trainer, 2)
+    losses = trainer.history[-1]["train"]
+    assert np.isfinite(losses["total"])
+    assert (losses["segdice"] > 0) == (family == "seg")
+    if family != "seg":
+        # one match for every layer at once, per train and val step
+        clock = trainer._criterion.clock
+        assert len(clock.solve_ms) == len(clock.wait_ms) == 1 + 2 * 1
+    scores = test.main(["--run", family, "--val", "--save_attn_map",
+                        "--device", "cpu", "--data_dir", data_dir])
+    assert np.isfinite(scores["mAP_coco"])
+    maps = list((tmp_path / "runs" / family).glob("attn_maps_val/**/*.png"))
+    # per case: the focused neck's affinity map, and every 5th of 32 frames
+    # (7), attention and segmentation, of 6 organs
+    want = {"seg": 2 * (1 + 6 * 7 * 2), "detr": 2 * 6 * 7 * 2,
+            "def_detr": 0}[family]
+    assert len(maps) == want
+    _predict(tmp_path, family, cfg["neck"]["num_organs"])

@@ -7,7 +7,10 @@
 
 The port names its parameters exactly as the reference's ``state_dict``,
 so the import is a strict ``load_state_dict`` into ``build_model(config)``:
-a missing, unexpected or misshapen tensor raises. It writes
+a missing, unexpected or misshapen tensor raises. The Focused Decoder
+family only (the flagship, its refine and seg-proxy variants, SwinFPN): a
+``detr`` or ``def_detr`` config raises, as the reference's DETR branches
+are not in this checkout. It writes
 ``runs/<name>/`` with the frozen config and a training checkpoint
 (``model_best_<metric>.pt`` when the file records a best metric, else
 ``model_last.pt``) that carries the file's epoch and best metric and a
@@ -52,6 +55,13 @@ def load_reference_state_dict(path):
 def import_checkpoint(config, state_dict, epoch, best, run_name):
     """Load ``state_dict`` strictly into the model of ``config`` and write
     the run; returns the checkpoint's path."""
+    neck = config["neck"].get("name", "foc_attn")
+    if neck != "foc_attn":
+        raise ValueError(
+            f"no reference checkpoint layout for the {neck} neck: the "
+            f"reference's DETR branches are not in this checkout, so their "
+            f"parameter names are unknown; import_checkpoint reads the "
+            f"Focused Decoder family only")
     model = build_model(config, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     optimizer, scheduler = make_optimizer(model, config)

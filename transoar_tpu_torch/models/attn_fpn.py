@@ -19,6 +19,12 @@ With ``remat`` (default true, as the JAX encoder's ``nn.remat``) each CNN
 encoder block runs under ``torch.utils.checkpoint`` when grad is enabled:
 its activations are recomputed in the backward instead of kept. Swin stages
 are not rematerialised, as in the JAX encoder.
+
+With ``use_seg_proxy_loss`` the decoder runs down to stage 0 (the laterals,
+the up-convs and ``out0`` at ``start_channels``, full resolution) for the
+seg head; with ``use_decoder_attn`` the ``def_attn.feature_levels`` are
+refined by deformable self-attention (``_decoder._refine``,
+``models/def_attn.DecoderDefAttnBlock``) and replace their P-levels.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from transoar_tpu_torch.models.def_attn import DecoderDefAttnBlock
 from transoar_tpu_torch.models.layers import EncoderCnnBlock
 from transoar_tpu_torch.models.swin import EncoderSwinBlock
 from transoar_tpu_torch.ops.conv3d import Conv3d, ConvTranspose3d
@@ -44,17 +51,6 @@ def required_stages(config) -> list[int]:
     if config.get("use_seg_proxy_loss"):
         stages.add(0)
     return sorted(stages)
-
-
-def _check_supported(cfg) -> None:
-    if cfg.get("use_decoder_attn"):
-        raise NotImplementedError(
-            "the deformable FPN refine (use_decoder_attn) is not ported yet: "
-            "ROADMAP Queue 1, deformable family")
-    if cfg.get("use_seg_proxy_loss"):
-        raise NotImplementedError(
-            "the segmentation-proxy head is not ported yet: ROADMAP Queue 1, "
-            "matcher + criterion")
 
 
 class Encoder(nn.Module):
@@ -121,7 +117,9 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """FPN decoder: 1x1 laterals, kernel == stride transposed-conv top-down
-    path, 3x3 out convs for the required stages only."""
+    path, 3x3 out convs for the required stages only (``out0`` at
+    ``start_channels`` under the seg proxy), then the optional deformable
+    refine of ``def_attn.feature_levels``."""
 
     def __init__(self, config: Dict[str, Any],
                  dtype: torch.dtype = torch.bfloat16):
@@ -144,12 +142,25 @@ class Decoder(nn.Module):
                             lat_ch[s - self.earliest - 1], strides[s],
                             dtype=dtype)
             for s in reversed(self.lateral_stages) if s > self.earliest)
+        seg_proxy = config.get("use_seg_proxy_loss", False)
         self._out = nn.ModuleList(
-            Conv3d(lat_ch[s - self.earliest], fpn, 3, dtype=dtype)
+            Conv3d(lat_ch[s - self.earliest],
+                   start if seg_proxy and s == 0 else fpn, 3, dtype=dtype)
             for s in self.stages_needed)
+        self.refine_levels = []
+        if config.get("use_decoder_attn"):
+            da = config["def_attn"]
+            self.refine_levels = list(da["feature_levels"])
+            self._refine = DecoderDefAttnBlock(
+                da["hidden_dim"], da["nheads"], da["layers"],
+                da["dim_feedforward"], float(da["dropout"]), da["n_points"],
+                len(self.refine_levels), da.get("pos_encoding", "sine"),
+                dtype)
 
-    def forward(self, enc_out: Dict[str, torch.Tensor]
+    def forward(self, enc_out: Dict[str, torch.Tensor],
+                generator: torch.Generator | None = None
                 ) -> Dict[str, torch.Tensor]:
+        """``generator`` draws the refine's dropout masks."""
         top_down = {}
         up = None
         ups = iter(self._up)
@@ -160,8 +171,13 @@ class Decoder(nn.Module):
             top_down[s] = x
             if s > self.earliest:
                 up = next(ups)(x)
-        return {f"P{s}": out(top_down[s])
-                for s, out in zip(self.stages_needed, self._out)}
+        outputs = {f"P{s}": out(top_down[s])
+                   for s, out in zip(self.stages_needed, self._out)}
+        if self.refine_levels:
+            refined = self._refine([outputs[lv] for lv in self.refine_levels],
+                                   generator)
+            outputs.update(zip(self.refine_levels, refined))
+        return outputs
 
 
 class AttnFPN(nn.Module):
@@ -170,7 +186,6 @@ class AttnFPN(nn.Module):
     def __init__(self, config: Dict[str, Any],
                  dtype: torch.dtype = torch.bfloat16, input_shape=None):
         super().__init__()
-        _check_supported(config)
         self._encoder = Encoder(config, min(required_stages(config)), dtype,
                                 input_shape)
         self._decoder = Decoder(config, dtype)
@@ -178,4 +193,4 @@ class AttnFPN(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None
                 ) -> Dict[str, torch.Tensor]:
-        return self._decoder(self._encoder(x, generator))
+        return self._decoder(self._encoder(x, generator), generator)

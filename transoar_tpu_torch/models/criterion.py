@@ -1,4 +1,4 @@
-"""Detection losses of the Focused Decoder (port of
+"""Detection and segmentation-proxy losses of the Focused Decoder (port of
 ``transoar_tpu/models/criterion.py``), f32 scalars on the device.
 
 - ``loss_class``: BCE-with-logits against the matcher's soft labels,
@@ -11,6 +11,11 @@
   reference does.
 - ``present_total`` replaces the two batch-coupling normalizers by a
   batch-global count, so per-sample calls sum to the batched loss.
+- ``loss_segmentation``: cross-entropy + nnU-Net SoftDice (batch dice,
+  softmax, background excluded, smooth 1e-5) of the seg-proxy head against
+  the label batch (foreground / background under ``fg_bg``).
+- ``build_criterion``: this Criterion for the focused neck, the DETR set
+  criterion (``models/detr.SetCriterion``) for ``detr`` / ``def_detr``.
 
 The loss keys follow the reference, so ``total_loss`` weighs each by
 ``loss_coefs[key.split('_')[0]]``.
@@ -23,6 +28,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from transoar_tpu_torch.models.detr import SetCriterion
 from transoar_tpu_torch.models.matcher import match
 from transoar_tpu_torch.utils.boxes import (box_cxcyczwhd_to_xyzxyz,
                                             generalized_box_iou_elementwise)
@@ -61,15 +67,34 @@ def loss_bboxes(pred_boxes, matches, tgt_boxes, tgt_present, num_organs,
     return loss_l1, loss_giou
 
 
+def soft_dice_loss(logits, seg_onehot, smooth=1e-5):
+    """nnU-Net SoftDice over batch and space, softmax, background excluded;
+    logits / seg_onehot [B, S0, S1, S2, K]."""
+    probs = logits.float().softmax(-1)
+    dims = (0, 1, 2, 3)
+    tp = (probs * seg_onehot).sum(dims)
+    fp = (probs * (1.0 - seg_onehot)).sum(dims)
+    fn = ((1.0 - probs) * seg_onehot).sum(dims)
+    dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
+    return 1.0 - dc[1:].mean()
+
+
+def loss_segmentation(pred_seg, seg_targets, fg_bg=True):
+    """(CE, SoftDice) of pred_seg [B, S0, S1, S2, K] against the int labels
+    seg_targets [B, S0, S1, S2]."""
+    K = pred_seg.shape[-1]
+    tgt = (seg_targets > 0).long() if fg_bg else seg_targets.long()
+    onehot = F.one_hot(tgt, K).float()
+    logp = pred_seg.float().log_softmax(-1)
+    ce = -(onehot * logp).sum(-1).mean()
+    return ce, soft_dice_loss(pred_seg, onehot)
+
+
 class Criterion:
     """Matcher + losses (reference TransoarCriterion); holds only static
     config."""
 
     def __init__(self, config):
-        if config["backbone"].get("use_seg_proxy_loss"):
-            raise NotImplementedError(
-                "the segmentation-proxy loss is not ported yet: ROADMAP "
-                "Queue 1, item 1 (seg proxy)")
         self.num_organs = config["neck"]["num_organs"]
         m = config["matching"]
         self.cost_class = float(m["cost_class"])
@@ -78,6 +103,8 @@ class Criterion:
         self.anchor_matching = bool(m["anchor_matching"])
         self.aux_loss = bool(config["neck"].get("aux_loss"))
         self.aux_on_final = bool(config["neck"].get("aux_loss_on_final"))
+        self.seg_proxy = bool(config["backbone"].get("use_seg_proxy_loss"))
+        self.fg_bg = bool(config["backbone"].get("fg_bg", True))
 
     def _match(self, logits, boxes, anchors, tgt_boxes, tgt_present):
         return match(logits.detach(), boxes.detach(), anchors, tgt_boxes,
@@ -88,7 +115,8 @@ class Criterion:
 
     def __call__(self, outputs, targets, anchors,
                  present_total=None) -> Dict[str, Any]:
-        """outputs: the model's dict; targets: {'boxes', 'present'}."""
+        """outputs: the model's dict; targets: {'boxes', 'present'[,
+        'seg']}."""
         tgt_boxes, tgt_present = targets["boxes"], targets["present"]
 
         num_boxes = cls_count = None
@@ -105,15 +133,18 @@ class Criterion:
         l_bbox, l_giou = loss_bboxes(
             outputs["pred_boxes"], matches, tgt_boxes, tgt_present,
             self.num_organs, num_boxes=num_boxes)
-        zero = torch.zeros((), device=tgt_boxes.device)
         losses = {
             "bbox": l_bbox,
             "giou": l_giou,
             "cls": loss_class(outputs["pred_logits"], soft, self.num_organs,
                               count=cls_count),
-            "segce": zero,
-            "segdice": zero,
         }
+        if self.seg_proxy:
+            losses["segce"], losses["segdice"] = loss_segmentation(
+                outputs["pred_seg"], targets["seg"], self.fg_bg)
+        else:
+            zero = torch.zeros((), device=tgt_boxes.device)
+            losses["segce"] = losses["segdice"] = zero
 
         if self.aux_loss and "aux_logits" in outputs:
             for i in range(outputs["aux_logits"].shape[0]):
@@ -137,16 +168,15 @@ class Criterion:
 
 
 def build_criterion(config):
-    """The focused branch's Criterion; RetinaNet and DETR raise."""
+    """The focused neck's Criterion, the DETR necks' SetCriterion;
+    RetinaNet raises."""
     if "retina" in config:
         raise NotImplementedError(
             "the RetinaNet criterion is not ported yet: ROADMAP Queue 1, "
-            "item 5 (RetinaNet)")
-    if config["neck"].get("name", "foc_attn") != "foc_attn":
-        raise NotImplementedError(
-            "the DETR set criterion is not ported yet: ROADMAP Queue 1, "
-            "item 4 (deformable family)")
-    return Criterion(config)
+            "item 6 (RetinaNet / Retina U-Net)")
+    if config["neck"].get("name", "foc_attn") == "foc_attn":
+        return Criterion(config)
+    return SetCriterion(config)
 
 
 def total_loss(losses, loss_coefs):

@@ -214,8 +214,10 @@ class FocusedDecoder(nn.Module):
         super().__init__()
         if not config.get("share_qk_proj", True):
             raise NotImplementedError(
-                "separate q_proj (share_qk_proj: false) is not ported: the "
-                "reference and the flagship use shared-QK attention")
+                "separate q_proj (share_qk_proj: false) is not ported yet: "
+                "ROADMAP Queue 1, item 7 (config keys no shipped config "
+                "sets); the reference and the flagship use shared-QK "
+                "attention")
         C = config["hidden_dim"]
         self.dtype = dtype
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(

@@ -54,9 +54,12 @@ class PositionEmbeddingSine3D(nn.Module):
         key = (tuple(x.shape[1:4]), x.device)
         table = self._tables.get(key)
         if table is None:
-            table = torch.as_tensor(
-                sine_position_encoding(key[0], self.channels),
-                dtype=self.dtype, device=x.device)
+            # a normal tensor even when first built under inference_mode, so
+            # that a later training forward may save it for the backward
+            with torch.inference_mode(False):
+                table = torch.as_tensor(
+                    sine_position_encoding(key[0], self.channels),
+                    dtype=self.dtype, device=x.device)
             self._tables[key] = table
         return table.expand(x.shape[0], *table.shape)
 
@@ -68,5 +71,5 @@ def build_pos_enc(kind: str, channels: int,
     if kind == "learned":
         raise NotImplementedError(
             "the learned position encoding is not ported yet: ROADMAP "
-            "Queue 1, position encodings")
+            "Queue 1, item 7 (config keys no shipped config sets)")
     raise ValueError(f"unknown positional encoding: {kind}")

@@ -275,7 +275,8 @@ class EncoderSwinBlock(nn.Module):
         if conv_merging:
             raise NotImplementedError(
                 "swin.conv_merging (ConvPatchMerging) is not ported yet: "
-                "ROADMAP Queue 1, Swin family")
+                "ROADMAP Queue 1, item 7 (config keys no shipped config "
+                "sets)")
         rates = list(drop_path) + [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, shift=i % 2 == 1,

@@ -8,6 +8,12 @@ and dry runs, which have no dataset and no trained weights on disk.
 - ``swin_fpn_config``, ``tiny_swin_config``: the same for swin_fpn_visceral
   (SwinFPN + Focused Decoder, 160x160x256, 20 organs), and a tiny variant
   whose Swin stages keep 5x5x5 windows, shifted and clamped.
+- ``model_config``: any shipped ``config/<name>.yaml`` as shipped, with
+  synthetic dataset statistics (foc_dec_seg_amos, foc_dec_refine_amos,
+  detr_amos, def_detr_amos, ...).
+- ``tiny_config(family)``: tiny variants of the seg-proxy, refine, DETR and
+  Deformable-DETR families, built on ``tiny_flagship_config`` with the
+  family's keys set as its shipped config sets them.
 - ``save_random_run``: a run directory (``training/checkpoints.py`` layout)
   whose every parameter is drawn from a seed, for ``predict`` to restore.
 - ``write_ct_volumes``: CT-like int16 NIfTI volumes with LPS-style affines,
@@ -62,14 +68,19 @@ def fill_synthetic_stats(config, seed=None):
     return config
 
 
-def flagship_config(batch_size=None, patch_size=None):
-    """Focused Decoder + AttnFPN on AMOS-shaped volumes (foc_dec_amos)."""
-    cfg = fill_synthetic_stats(get_config("foc_dec_amos"))
+def model_config(name, batch_size=None, patch_size=None):
+    """``config/<name>.yaml`` with synthetic dataset statistics."""
+    cfg = fill_synthetic_stats(get_config(name))
     if batch_size is not None:
         cfg["trainer"]["batch_size"] = batch_size
     if patch_size is not None:
         cfg["augmentation"]["patch_size"] = list(patch_size)
     return cfg
+
+
+def flagship_config(batch_size=None, patch_size=None):
+    """Focused Decoder + AttnFPN on AMOS-shaped volumes (foc_dec_amos)."""
+    return model_config("foc_dec_amos", batch_size, patch_size)
 
 
 def tiny_flagship_config(num_organs=6, patch=(32, 32, 16)):
@@ -93,12 +104,7 @@ def tiny_flagship_config(num_organs=6, patch=(32, 32, 16)):
 def swin_fpn_config(batch_size=None, patch_size=None):
     """SwinFPN + Focused Decoder on VISCERAL-shaped volumes
     (swin_fpn_visceral)."""
-    cfg = fill_synthetic_stats(get_config("swin_fpn_visceral"))
-    if batch_size is not None:
-        cfg["trainer"]["batch_size"] = batch_size
-    if patch_size is not None:
-        cfg["augmentation"]["patch_size"] = list(patch_size)
-    return cfg
+    return model_config("swin_fpn_visceral", batch_size, patch_size)
 
 
 def tiny_swin_config(num_organs=6, patch=(40, 40, 16)):
@@ -124,6 +130,44 @@ def tiny_swin_config(num_organs=6, patch=(40, 40, 16)):
     del cfg["bbox_properties"]
     del cfg["labels"]
     return fill_synthetic_stats(cfg)
+
+
+# the shipped config each tiny family takes its keys from
+FAMILIES = {"seg": "foc_dec_seg_amos", "refine": "foc_dec_refine_amos",
+            "detr": "detr_amos", "def_detr": "def_detr_amos"}
+
+
+def tiny_config(family, num_organs=6, patch=(32, 32, 16)):
+    """``tiny_flagship_config`` (4 CNN stages 8 -> 64 channels, FPN and
+    neck at 96) turned into ``family`` as its shipped config does it:
+
+    - ``seg``: the seg proxy (out0 and the seg head on P0, 32x32x16);
+    - ``refine``: the deformable refine over P2-P3 (8x8x4 + 4x4x2 tokens),
+      6 heads x 16, 2 points, 2 layers;
+    - ``detr``: the DETR neck, 20 queries, 8 heads, 3 layers, dense
+      cross-attention over P2, the Hungarian set criterion;
+    - ``def_detr``: Deformable DETR over P2-P3, 6 heads, 2 points.
+    """
+    cfg = tiny_flagship_config(num_organs, patch)
+    shipped = get_config(FAMILIES[family])
+    backbone, neck = cfg["backbone"], cfg["neck"]
+    for key in ("use_seg_proxy_loss", "fg_bg", "use_decoder_attn"):
+        backbone[key] = shipped["backbone"][key]
+    if family == "refine":
+        backbone["def_attn"].update(feature_levels=["P2", "P3"],
+                                    hidden_dim=96, dim_feedforward=128,
+                                    n_points=2)
+    if family in ("detr", "def_detr"):
+        cfg["matching"] = dict(shipped["matching"])
+        for key in ("name", "dec_layers", "restrict_attn",
+                    "anchor_gen_dynamic_offset", "anchor_offset_pred",
+                    "aux_loss", "nheads"):
+            neck[key] = shipped["neck"][key]
+        neck.update(num_queries=20, dec_layers=3)
+    if family == "def_detr":
+        neck.update(feature_levels=["P2", "P3"], n_points=2)
+        backbone["out_fmaps"] = ["P2", "P3"]
+    return cfg
 
 
 def save_random_run(config, path_to_run, seed=0, name="model_last") -> Path:

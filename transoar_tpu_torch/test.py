@@ -13,7 +13,8 @@ intensities as training does, decodes one box per organ
 ``--full_labeled`` skips cases missing an organ; ``--save_preds`` writes
 .ply point clouds and box wireframes, ``--save_attn_map`` the last decoder
 layer's attention maps as PNGs (both need numpy and PIL, scipy for the
-maps). Runs on ``cuda`` unless asked for the CPU.
+maps; the Deformable-DETR neck has no dense map and exports none). Runs on
+``cuda`` unless asked for the CPU.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ class Tester:
         num_classes = self._num_organs
         attn_dir = self._path_to_run / f"attn_maps_{self._split}"
         pred_dir = self._path_to_run / f"predictions_{self._split}"
+        warned_no_attn = False
 
         for batch in self._loader:
             seg = torch.as_tensor(batch["seg"]).long().to(self._device)
@@ -102,12 +104,19 @@ class Tester:
                     boxes[0], classes[0], scores[0], tgt_boxes[present],
                     gt_classes, np.asarray(batch["seg"])[0], pred_dir,
                     case_id)
-            if self._args.save_attn_map:
+            if self._args.save_attn_map and "attn_weights" in out:
                 from transoar_tpu_torch.utils.visualization import \
                     save_attn_visualization
 
                 save_attn_visualization(out, self._config, attn_dir, case_id,
                                         seg=np.asarray(batch["seg"])[0])
+            elif self._args.save_attn_map and not warned_no_attn:
+                # a deformable neck samples sparse points: there is no dense
+                # map to export (as scripts/test.py)
+                warned_no_attn = True
+                logger.warning("--save_attn_map: the %s neck has no "
+                               "attention map; none exported",
+                               self._config["neck"].get("name"))
 
         scores_dict = self._evaluator.eval()
         write_json(scores_dict,

@@ -30,8 +30,8 @@ def make_optimizer(model: torch.nn.Module, config, steps_per_epoch=1):
     tcfg = config["trainer"]
     if int(tcfg.get("grad_accum_steps", 1)) > 1:
         raise NotImplementedError(
-            "trainer.grad_accum_steps > 1 is not ported: raise "
-            "trainer.batch_size instead")
+            "trainer.grad_accum_steps > 1 is not ported yet: ROADMAP "
+            "Queue 1, item 7 (config keys no shipped config sets)")
     backbone, rest = [], []
     for name, p in model.named_parameters():
         if p.requires_grad:

@@ -233,7 +233,7 @@ class Trainer:
         self._copy_stream = (torch.cuda.Stream(self._device)
                              if self._device.type == "cuda" else None)
 
-        criterion = build_criterion(config)
+        self._criterion = criterion = build_criterion(config)
         self._evaluator = build_evaluator(config)
         self._train_step = make_train_step(model, criterion, optimizer,
                                            scheduler, config, self._generator)

@@ -163,12 +163,20 @@ def save_attn_visualization(model_out, config, out_dir, case_id, seg=None,
     attn = np.asarray(model_out["attn_weights"][0], np.float32)
     if attn.ndim == 3:  # focused branch: [H, Q, S] -> head average
         attn = attn.mean(0)
-    # the focused neck's queries come in organ blocks: per organ, its best
-    # scoring query (the DETR necks' branch is not ported)
     logits = np.asarray(model_out["pred_logits"][0], np.float32)
-    attn = attn.reshape(num_organs, qpo, *shape)
-    logits = logits.reshape(num_organs, qpo)
-    organ_vols = attn[np.arange(num_organs), logits.argmax(-1)]
+    if logits.shape[-1] > 1:
+        # DETR branch: generic queries + softmax classes (no organ/qpo
+        # block structure) — per organ, take the query most confident in
+        # that class
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        probs = e / e.sum(-1, keepdims=True)  # [Q, K+1]
+        attn = attn.reshape(attn.shape[0], *shape)  # [Q, *shape]
+        best_query = probs[:, 1:num_organs + 1].argmax(0)  # [num_organs]
+        organ_vols = attn[best_query]
+    else:
+        attn = attn.reshape(num_organs, qpo, *shape)
+        logits = logits.reshape(num_organs, qpo)
+        organ_vols = attn[np.arange(num_organs), logits.argmax(-1)]
 
     for organ in range(num_organs):
         vol = organ_vols[organ]

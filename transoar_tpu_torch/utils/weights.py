@@ -1,13 +1,16 @@
 """Weight bridge: the JAX package's flax parameters -> the port's state_dict.
 
 ``state_dict_from_jax(params, config)`` takes the flax parameter tree of a
-``transoar_tpu`` TransoarNet (Focused Decoder + AttnFPN, with CNN or Swin
-encoder stages), as nested dicts of numpy arrays, and returns the port's ``state_dict``. The port names
-its parameters as the reference torch model does, so this is the inverse of
-``transoar_tpu.utils.torch_import.map_reference_state_dict``: transposes
-of conv and dense kernels, and the ``[C, H, hd]`` attention kernels flattened
-back to ``[C, C]``. No jax is needed; the per-module converters are used by
-the parity tests too.
+``transoar_tpu`` TransoarNet (AttnFPN with CNN or Swin encoder stages, the
+deformable refine and the seg head; the Focused Decoder, DETR or
+Deformable-DETR neck), as nested dicts of numpy arrays, and returns the
+port's ``state_dict``. The port names its parameters as the reference torch
+model does, so for the reference's modules this is the inverse of
+``transoar_tpu.utils.torch_import.map_reference_state_dict``: transposes of
+conv and dense kernels, and the ``[C, H, hd]`` attention kernels flattened
+back to ``[C, C]``. The DETR necks, which the reference checkout lacks, use
+the port's own names (``models/detr.py``). No jax is needed; the
+per-module converters are used by the parity tests too.
 """
 
 from __future__ import annotations
@@ -126,6 +129,42 @@ def decoder_layer(p):
             **ffn(p["ffn"], ("linear1", "linear2", "norm3"))}
 
 
+def ms_deform_attn(p):
+    """flax MSDeformAttn -> ``value_proj``, ``sampling_offsets``,
+    ``attention_weights``, ``output_proj``."""
+    out = {}
+    for name in ("value_proj", "sampling_offsets", "attention_weights",
+                 "output_proj"):
+        out.update(_prefixed(name, dense(p[name])))
+    return out
+
+
+def refine(p):
+    """flax DecoderDefAttnBlock -> ``level_embed``,
+    ``refine_def_attn.layers.{i}.*`` (the names
+    ``torch_import._map_refine`` reads)."""
+    sd = {"level_embed": p["level_embed"]}
+    for i in _stage_numbers(p, "layer"):
+        lay = p[f"layer{i}"]
+        sd.update(_prefixed(f"refine_def_attn.layers.{i}", {
+            **_prefixed("self_attn", ms_deform_attn(lay["self_attn"])),
+            **_prefixed("norm1", norm(lay["LayerNorm_0"])),
+            **ffn(lay["FFN_0"], ("linear1", "linear2", "norm2"))}))
+    return sd
+
+
+def detr_layer(p):
+    """flax DETRDecoderLayer / DeformableDETRDecoderLayer -> ``self_attn``,
+    ``norm_sa``, ``cross_attn``, ``norm_ca``, ``ffn.*``."""
+    ca = p["cross_attn"]
+    return {**_prefixed("self_attn", self_attention(p["self_attn"])),
+            **_prefixed("norm_sa", norm(p["norm_sa"])),
+            **_prefixed("cross_attn", self_attention(ca["mha"]) if "mha" in ca
+                        else ms_deform_attn(ca)),
+            **_prefixed("norm_ca", norm(p["norm_ca"])),
+            **_prefixed("ffn", ffn(p["ffn"]))}
+
+
 def _stage_numbers(tree, prefix):
     return sorted(int(k[len(prefix):]) for k in tree if k.startswith(prefix))
 
@@ -153,9 +192,20 @@ def state_dict_from_jax(params, config) -> dict:
     for m, s in enumerate(_stage_numbers(dec, "out")):
         sd.update(_prefixed(f"_backbone._decoder._out.{m}",
                             conv(dec[f"out{s}"])))
+    if "refine" in dec:
+        sd.update(_prefixed("_backbone._decoder._refine",
+                            refine(dec["refine"])))
+    neck = params["neck"]
+    focused = config["neck"].get("name", "foc_attn") == "foc_attn"
     for i in range(config["neck"]["dec_layers"]):
         sd.update(_prefixed(f"_neck.decoder.layers.{i}",
-                            decoder_layer(params["neck"][f"layer{i}"])))
+                            decoder_layer(neck[f"layer{i}"])) if focused
+                  else _prefixed(f"_neck.layers.{i}",
+                                 detr_layer(neck[f"layer{i}"])))
+    if "ref_points" in neck:
+        sd.update(_prefixed("_neck.ref_points", dense(neck["ref_points"])))
+    if "seg_head" in params:
+        sd.update(_prefixed("_seg_head", conv(params["seg_head"])))
     sd.update(_prefixed("_cls_head", dense(params["cls_head"])))
     sd.update(_prefixed("_reg_head", mlp(params["reg_head"])))
     sd["_query_embed.weight"] = params["query_embed"]
