@@ -125,7 +125,19 @@ each printing a line; any failure exits non-zero before the result lines:
    under 40 GiB on every path, and for the DETR necks the matcher's host
    ms of every call (the copy of the cost to the host, which waits for the
    forward, and the exact solve with the copy back);
-17. ``test.main --val`` on phase 16's def_detr_amos run.
+17. ``test.main --val`` on phase 16's def_detr_amos run;
+18. retina: retina_amos as shipped (2 epochs of 3 steps, 3 validations)
+   and Retina U-Net (retina_amos with the seg proxy; 1 epoch, 2
+   validations) at full width, as phase 16 trains (1,345,536 anchors,
+   stage 0 on kernels 1-3), each train step's positive anchors counted
+   (without any, the regression tower must not move), each validation
+   decoded on the card (``retina_inference``) and the evaluator lists of
+   the validation split checked (with no score threshold also against the
+   NMS's contract: kept boxes in score order, none of a class overlapping
+   above the IoU threshold); before them the decode on the card against
+   the CPU on a seeded input without ties (1e-5);
+   then the test CLI (``test.Tester`` --val, the family's serving path) on
+   each run, with each case's forward and decode CUDA-event ms.
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; every serving, training and test path also requires
@@ -134,8 +146,8 @@ training path every launch of its dw kernel, to have taken the wide or the
 fold variant, never the generic one, and every launch of the window
 kernels to have taken fwd_wg / bwd_wg (none on the flagship's paths).
 Then a line with each model's loop rates in every augmentation setting
-side by side and the host's core count, one with phase 16's configs side
-by side, one JSON line of per-kernel results (each kernel's launches on
+side by side and the host's core count, one with phase 16's and 18's configs
+side by side, one JSON line of per-kernel results (each kernel's launches on
 every path) and, last, the device line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -199,6 +211,10 @@ FAMILY_CONFIGS = ("foc_dec_seg_amos", "foc_dec_refine_amos", "detr_amos",
                   "def_detr_amos")
 FAMILY_VOLUMES = VOLUME_SHAPES[:2]
 FAMILY_EPOCHS, FAMILY_STEPS = 2, 3
+# phase 18: retina_amos as shipped for FAMILY_EPOCHS epochs, Retina U-Net
+# (retina_amos with the seg proxy) for one, each of FAMILY_STEPS steps, then
+# the test CLI (the family's serving path) on each run
+RETINA_RUNS = (("retina_amos", FAMILY_EPOCHS), ("retina_unet_amos", 1))
 # the tiny models of phase 7 (card vs CPU forward) and those of phase 8 (a
 # train step each)
 SMALL_MODELS = ("flagship", "swin", "seg", "refine", "detr", "def_detr")
@@ -1010,12 +1026,15 @@ def _dataset(root, cfg, train_cases, val_cases):
     return name, time.perf_counter() - t0
 
 
-def _train(cfg, name, root, dataset, epochs, debug=False,
+def _train(cfg, name, root, dataset, epochs, debug=False, still=None,
            **trainer_options):
     """train.train on root/dataset/<dataset> in root, with every count at 0
     before; checks losses, moved parameters, the step count and (unless
     ``debug``: no checkpoints, no validation after the epochs)
-    model_last.pt; returns (trainer, counts, peak, run_s)."""
+    model_last.pt; returns (trainer, counts, peak, run_s). ``still()``,
+    asked after the run, names the parameter prefixes that had no
+    gradient in it: those must not have moved, and at least 90% of the
+    others must have."""
     from transoar_tpu_torch import train
     from transoar_tpu_torch.models.transoarnet import build_model
     from transoar_tpu_torch.utils.io import load_json
@@ -1051,9 +1070,14 @@ def _train(cfg, name, root, dataset, epochs, debug=False,
                         .manual_seed(int(cfg["seed"])))
     moved = [n for n, p in trainer._model.state_dict().items()
              if not torch.equal(p.cpu(), fresh.state_dict()[n])]
-    if len(moved) < 0.9 * len(fresh.state_dict()):
+    prefixes = tuple(still()) if still else ()
+    frozen = [n for n in fresh.state_dict() if n.startswith(prefixes)]
+    if set(frozen) & set(moved):
+        fail(f"{name} training moved {sorted(set(frozen) & set(moved))} "
+             f"without a gradient")
+    if len(moved) < 0.9 * (len(fresh.state_dict()) - len(frozen)):
         fail(f"{name} training changed only {len(moved)} of "
-             f"{len(fresh.state_dict())} tensors")
+             f"{len(fresh.state_dict()) - len(frozen)} tensors")
     cases = len(trainer._train_loader) * BATCH
     if len(trainer.clock.ms) != epochs * cases // BATCH:
         fail(f"{len(trainer.clock.ms)} step times for "
@@ -1338,6 +1362,8 @@ def _long_split(root, dataset, cases):
     src = Path(root) / "dataset" / dataset
     name = f"{dataset}_x{cases}"
     out = Path(root) / "dataset" / name
+    if out.exists():  # made by an earlier phase
+        return name
     (out / "train").mkdir(parents=True)
     real = sorted((src / "train").iterdir())
     for i in range(cases):
@@ -1593,6 +1619,202 @@ def phase_families(root, dataset):
     return counts_by_path, results
 
 
+def _retina_validation_lists(trainer):
+    """The validation split of the trained run through the trainer's eval
+    step and the card's decode: the evaluator's ragged lists, one entry a
+    volume (boxes [n, 6] finite, classes in 1..organs, scores at least the
+    decode's 0.05, in NMS order within a class)."""
+    from transoar_tpu_torch.models.retina import retina_inference
+
+    organs = trainer._config["neck"]["num_organs"]
+    kept = []
+    for batch in trainer._prefetch(trainer._val_loader):
+        losses, preds, _ = trainer._eval_step(batch)
+        if set(preds) != {"anchor_logits", "anchor_deltas"}:
+            fail(f"retina eval step predicted {sorted(preds)}")
+        if not all(torch.isfinite(v).all() for v in losses.values()):
+            fail(f"retina validation losses {losses}")
+        boxes, classes, scores = retina_inference(
+            preds, trainer._model.anchors, organs)
+        n = batch["image"].shape[0]
+        if not len(boxes) == len(classes) == len(scores) == n:
+            fail(f"retina decode gave {len(boxes)} volumes of {n}")
+        for b, c, sc in zip(boxes, classes, scores):
+            if b.shape != (len(c), 6) or len(sc) != len(c) or \
+                    c.dtype != np.int64 or not np.isfinite(b).all() or \
+                    (len(c) and (c.min() < 1 or c.max() > organs
+                                 or sc.min() < 0.05)):
+                fail(f"retina decode lists: boxes {b.shape}, classes {c}, "
+                     f"scores {sc}")
+            kept.append(len(c))
+        _check_nms(retina_inference(preds, trainer._model.anchors, organs,
+                                    score_threshold=0.0), organs)
+    return kept
+
+
+def _check_nms(lists, organs, iou_threshold=0.5, max_out=50):
+    """The NMS's own contract on decoded lists: every class keeps 1 to
+    ``max_out`` boxes, in non-increasing score order, no two of which
+    overlap above ``iou_threshold`` (IoU of the corner boxes)."""
+    from transoar_tpu_torch.utils.boxes import (box_cxcyczwhd_to_xyzxyz,
+                                                box_iou_pairwise)
+
+    for boxes, classes, scores in zip(*lists):
+        for c in range(1, organs + 1):
+            mine = classes == c
+            if not 1 <= mine.sum() <= max_out:
+                fail(f"NMS kept {mine.sum()} boxes of class {c}")
+            sc = scores[mine]
+            if (np.diff(sc) > 0).any():
+                fail(f"NMS kept class {c} out of score order: {sc}")
+            corners = box_cxcyczwhd_to_xyzxyz(torch.as_tensor(boxes[mine]))
+            iou, _ = box_iou_pairwise(corners, corners)
+            iou.fill_diagonal_(0.0)
+            if float(iou.max()) > iou_threshold + 1e-5:  # CPU rounding
+                fail(f"NMS kept class {c} boxes overlapping at IoU "
+                     f"{float(iou.max()):.3f}")
+
+
+def _retina_decode_check():
+    """retina_inference on the card against the CPU on a seeded input
+    without ties (3,000 anchors, 4 classes, distinct scores): the same
+    classes, boxes and scores within 1e-5; returns the boxes kept."""
+    from transoar_tpu_torch.models.retina import retina_inference
+
+    rng = np.random.default_rng(SEED)
+    A, C = 3000, 4
+    anchors = np.concatenate([rng.uniform(0.1, 0.9, (A, 3)),
+                              rng.uniform(0.02, 0.2, (A, 3))], -1)
+    logits = rng.permutation(A * C).reshape(1, A, C) / (A * C) * 8.0 - 4.0
+    deltas = rng.normal(0.0, 0.5, (1, A, 6))
+    got = {}
+    for device in ("cpu", "cuda"):
+        out = {"anchor_logits": torch.tensor(logits, dtype=torch.float32,
+                                             device=device),
+               "anchor_deltas": torch.tensor(deltas, dtype=torch.float32,
+                                             device=device)}
+        got[device] = retina_inference(out, torch.tensor(
+            anchors, dtype=torch.float32, device=device), C)
+    (cb, cc, cs), (gb, gc, gs) = got["cpu"], got["cuda"]
+    if not np.array_equal(cc[0], gc[0]) or len(cc[0]) == 0:
+        fail(f"retina decode card vs CPU classes {gc[0]} vs {cc[0]}")
+    np.testing.assert_allclose(gs[0], cs[0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gb[0], cb[0], rtol=0, atol=1e-5)
+    _check_nms(got["cuda"], C)
+    return len(gc[0])
+
+
+def _retina_test(root, path, run):
+    """test.Tester --val on runs/<run> with every count at 0 before: finite
+    mAPs, 2 packed_conv launches a case, and each case's forward and
+    decode (``retina_inference``) CUDA-event ms; returns (counts, ms)."""
+    from transoar_tpu_torch import test
+
+    args = test.build_parser().parse_args(
+        ["--run", run, "--val", "--data_dir", str(Path(root) / "dataset")])
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _reset_launches()
+        tester = test.Tester(args)
+        scores = tester.run()
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        os.chdir(cwd)
+    maps = {k: v for k, v in scores.items()
+            if k.startswith("mAP") and not k.endswith("_")}
+    if not maps or not all(np.isfinite(v) for v in maps.values()):
+        fail(f"{path}: scores {maps}")
+    if len(tester.case_ms) != VAL_CASES:
+        fail(f"{path}: {len(tester.case_ms)} cases timed of {VAL_CASES}")
+    _check_launches(path, counts, {"packed_conv": 2 * VAL_CASES})
+    ms = {k: [c[k] for c in tester.case_ms] for k in ("forward", "decode")}
+    print(f"{path}: test CLI --val on {run}, {VAL_CASES} cases; CUDA-event "
+          f"ms per case {json.dumps(ms)}; {json.dumps(maps)}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    return counts, ms
+
+
+def phase_retina(root, dataset):
+    """retina_amos as shipped and Retina U-Net at full width (256x256x128,
+    bf16, seeded random weights): train.train at batch 2 with host
+    augmentation through the native loader (RETINA_RUNS' epochs of
+    FAMILY_STEPS steps over links to the flagship dataset's train cases,
+    a validation before and after each epoch), the band conv's launches,
+    finite losses, every parameter moved but the regression tower's when
+    no step had a positive anchor (then it must not have), peak memory
+    under 40 GiB, the validation split decoded into the evaluator's lists
+    and, with no score threshold, held to the NMS's contract; then the test CLI on the run. Returns
+    (counts by path, results by config)."""
+    from transoar_tpu_torch.models.retina import RetinaCriterion
+    from transoar_tpu_torch.presets import model_config, retina_unet_config
+
+    kept = _retina_decode_check()
+    print(f"retina decode: card vs CPU on a seeded input without ties, "
+          f"{kept} boxes kept, the same within 1e-5", flush=True)
+    split = _long_split(root, dataset, BATCH * FAMILY_STEPS)
+    counts_by_path, results = {}, {}
+    assign = RetinaCriterion.assign
+    positives = []
+
+    def counting_assign(tgt_boxes, present, anchors):
+        """The criterion's assignment, counting each train step's positive
+        anchors on the card (read after the run)."""
+        best_gt, best_iou = assign(tgt_boxes, present, anchors)
+        if torch.is_grad_enabled():
+            positives.append((best_iou >= cfg["retina"]["pos_iou"]).sum())
+        return best_gt, best_iou
+
+    def no_gradient():
+        """Without a positive anchor in the run, the box losses are 0 and
+        the regression tower gets no gradient."""
+        return () if sum(int(n) for n in positives) else ("_reg_tower.",)
+
+    for name, epochs in RETINA_RUNS:
+        cfg = (retina_unet_config(BATCH) if name == "retina_unet_amos"
+               else model_config(name, batch_size=BATCH))
+        aug = cfg["augmentation"]
+        if not aug["use_augmentation"] or aug["on_device"] or \
+                cfg["trainer"]["num_workers"] <= 0 or \
+                cfg["backbone"]["stage0_pack"] != 4:
+            fail(f"{name} no longer ships host augmentation with loader "
+                 f"threads and the packed stage 0")
+        path = f"{name}_training"
+        positives.clear()
+        RetinaCriterion.assign = staticmethod(counting_assign)
+        try:
+            trainer, counts, peak, run_s = _train(
+                cfg, f"{name}_smoke", root, split, epochs, still=no_gradient)
+        finally:
+            RetinaCriterion.assign = staticmethod(assign)
+        case_ms = _check_loop(path, trainer, epochs, "host")
+        _check_launches(path, counts, _want_training(
+            epochs * FAMILY_STEPS, (epochs + 1) * (VAL_CASES // BATCH), 0))
+        if peak >= 40 * 2 ** 30:
+            fail(f"{path} peak memory {peak / 2 ** 30:.2f} GiB >= 40")
+        result = _training_result(trainer, epochs, counts, peak, run_s,
+                                  case_ms)
+        last = trainer.history[-1]["train"]
+        if (last["segdice"] > 0) != (name == "retina_unet_amos"):
+            fail(f"{path}: seg losses {last['segce']}, {last['segdice']}")
+        result["train_positive_anchors_per_step"] = [int(n)
+                                                     for n in positives]
+        result["val_detections_per_volume"] = _retina_validation_lists(
+            trainer)
+        grid = "x".join(map(str, aug["patch_size"]))
+        print(f"{path}: {name} {grid} batch {BATCH} bf16, "
+              f"{len(trainer._model.anchors)} anchors, as shipped; "
+              f"{json.dumps(result)}", flush=True)
+        counts_by_path[path] = counts
+        test_path = f"{name}_test"
+        counts_by_path[test_path], result["test_ms"] = _retina_test(
+            root, test_path, f"{name}_smoke")
+        results[name] = result
+    return counts_by_path, results
+
+
 def _entry(name, replaces, launches, rows, path_rows,
            source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
@@ -1652,6 +1874,10 @@ def main():
         paths.update(family_counts)
         paths["def_detr_amos_test"] = _test_run(
             root, "def_detr_amos_test", "def_detr_amos_smoke", VAL_CASES, 0)
+        retina_counts, retina_results = phase_retina(
+            root, datasets["foc_dec_amos"])
+        paths.update(retina_counts)
+        family_results.update(retina_results)
     _loop_summary(loop_results)
     _family_summary(family_results)
     src = "transoar_tpu/ops/pallas/packed_conv.py"

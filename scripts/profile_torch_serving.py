@@ -8,7 +8,9 @@ Builds a full-width model of transoar_tpu_torch (``--config foc_dec_amos``,
 the default: 256x256x128; ``swin_fpn_visceral``: 160x160x256 with Swin
 stages 2-5; or, at 256x256x128, ``foc_dec_seg_amos`` (the seg proxy's
 full-resolution decoder and head), ``foc_dec_refine_amos`` (the deformable
-refine of P3-P5), ``detr_amos`` or ``def_detr_amos``), bf16 compute, seeded
+refine of P3-P5), ``detr_amos``, ``def_detr_amos``, ``retina_amos``
+(RetinaNet: the shared towers over P2-P4, 1,345,536 anchors) or
+``retina_unet_amos`` (retina_amos with the seg proxy)), bf16 compute, seeded
 random weights, on the CUDA device, warms
 up, and then reports for ``--steps`` forwards of one volume (serving, batch
 1) or, with ``--train``, train steps at batch 2
@@ -17,10 +19,12 @@ criterion, backward with the CNN stages' remat recompute, AdamW;
 augmentation off, two synthetic cases):
 
 - wall ms per forward / step (host clock around work that ends in a
-  synchronize);
+  synchronize); for RetinaNet the serving forward is followed by its decode
+  (``retina_inference``: top-500 candidates a class, the batched NMS, the
+  kept slots to the host), whose CUDA-event ms are reported apart;
 - device ms per module (CUDA events around each encoder stage, the FPN
   decoder (the refine included), the refine alone, the neck, the
-  box-regression head and the seg head, summed over a step's completed
+  box-regression head, RetinaNet's two towers and the seg head, summed over a step's completed
   calls; in training an encoder stage's remat recompute stops early and is
   not among them);
 - kernel time by name from ``torch.profiler`` (device busy time, idle
@@ -30,6 +34,8 @@ augmentation off, two synthetic cases):
   nested ops' included: ``aten::grid_sampler_3d`` and its backward, the
   attention's ``aten::bmm``, ``aten::cudnn_convolution``...); with
   ``--trace``, a chrome trace;
+- with ``--train`` the criterion's forward (matching, targets and losses)
+  between CUDA events, per step;
 - with ``--train`` and a DETR neck, the exact matcher's host ms per step
   (``SetCriterion.clock``: the cost's copy to the host, which waits for the
   forward, and the solve with the copy back).
@@ -55,8 +61,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from transoar_tpu_torch.data.synthetic import make_case  # noqa: E402
 from transoar_tpu_torch.models.criterion import build_criterion  # noqa: E402
+from transoar_tpu_torch.models.retina import retina_inference  # noqa: E402
 from transoar_tpu_torch.models.transoarnet import build_model  # noqa: E402
-from transoar_tpu_torch.presets import model_config  # noqa: E402
+from transoar_tpu_torch.presets import (model_config,  # noqa: E402
+                                        retina_unet_config)
 from transoar_tpu_torch.training.train_state import (  # noqa: E402
     make_optimizer)
 from transoar_tpu_torch.training.trainer import make_train_step  # noqa: E402
@@ -67,7 +75,8 @@ from transoar_tpu_torch.utils.weights import random_state_dict  # noqa: E402
 PORT_KERNEL = re.compile(r"::((?:(?:conv|dw)_(?:wide|fold|mma|fma)|dw_reduce"
                          r"|(?:fwd|bwd)_(?:mma|fma|wg)|dbias_reduce)(?:<\d+>)?)\(")
 CONFIGS = ("foc_dec_amos", "swin_fpn_visceral", "foc_dec_seg_amos",
-           "foc_dec_refine_amos", "detr_amos", "def_detr_amos")
+           "foc_dec_refine_amos", "detr_amos", "def_detr_amos",
+           "retina_amos", "retina_unet_amos")
 
 
 def _timed_modules(model):
@@ -79,8 +88,9 @@ def _timed_modules(model):
     mods["fpn_decoder"] = model._backbone._decoder
     if hasattr(model._backbone._decoder, "_refine"):
         mods["refine"] = model._backbone._decoder._refine
-    mods["neck"] = model._neck
-    mods["reg_head"] = model._reg_head
+    for name in ("neck", "reg_head", "cls_tower", "reg_tower"):
+        if hasattr(model, f"_{name}"):
+            mods[name] = getattr(model, f"_{name}")
     if hasattr(model, "_seg_head"):
         mods["seg_head"] = model._seg_head
     events = {name: [] for name in mods}
@@ -112,9 +122,20 @@ def _serving(cfg, model):
         size=(1, *cfg["augmentation"]["patch_size"], 1)),
         dtype=torch.float32, device="cuda")
 
+    decode_ms = []
+
     @torch.inference_mode()
     def run():
-        model(x)
+        out = model(x)
+        if "anchor_logits" in out:  # RetinaNet: its decode, timed apart
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            retina_inference(out, model.anchors, cfg["neck"]["num_organs"])
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            decode_ms.append(start.elapsed_time(end))
+    run.decode_ms = decode_ms
     return run
 
 
@@ -131,10 +152,23 @@ def _training(cfg, model):
                  "cuda", torch.int8)}
     optimizer, scheduler = make_optimizer(model, cfg, 1)
     criterion = build_criterion(cfg)
-    step = make_train_step(model, criterion, optimizer, scheduler, cfg,
+    events = []
+
+    def timed_criterion(*args, **kwargs):
+        """The criterion's forward between CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = criterion(*args, **kwargs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        events.append((start, end))
+        return losses
+
+    step = make_train_step(model, timed_criterion, optimizer, scheduler, cfg,
                            torch.Generator(device="cuda").manual_seed(0))
     run = lambda: step(batch)  # noqa: E731
     run.criterion = criterion
+    run.criterion_events = events
     return run
 
 
@@ -155,7 +189,9 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi)
 
-    cfg = model_config(args.config, batch_size=2 if args.train else 1)
+    batch = 2 if args.train else 1
+    cfg = (retina_unet_config(batch) if args.config == "retina_unet_amos"
+           else model_config(args.config, batch_size=batch))
     cfg["augmentation"]["use_augmentation"] = False
     model = build_model(cfg, device="cpu")
     model.load_state_dict(random_state_dict(model, 0))
@@ -166,6 +202,10 @@ def main():
     for _ in range(3):
         run()
     torch.cuda.synchronize()
+    decode_ms = getattr(run, "decode_ms", [])
+    decode_ms.clear()
+    crit_events = getattr(run, "criterion_events", [])
+    crit_events.clear()
     events = _timed_modules(model)
     walls = []
     for _ in range(args.steps):
@@ -180,6 +220,8 @@ def main():
                   for name, evs in events.items()}
     for evs in events.values():
         evs.clear()
+    decode = list(decode_ms)
+    crit_ms = [a.elapsed_time(b) for a, b in crit_events]
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -229,6 +271,8 @@ def main():
             [e.key, e.device_time_total / 1e3 / args.steps,
              e.count // args.steps] for e in ops],
         "matcher_host_ms": matcher,
+        "retina_decode_event_ms": decode or None,
+        "criterion_forward_event_ms": crit_ms or None,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }, indent=1))
 

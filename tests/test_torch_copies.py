@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's host-side modules against their
-originals, on the same inputs: NIfTI I/O, config I/O, anchors, presets,
+originals, on the same inputs: NIfTI I/O, config I/O, anchors (the
+focused neck's and RetinaNet's), presets,
 the synthetic dataset, the loader, the evaluator, the Swin window
 helpers, the host augmentation and its loader, the offline preprocessor
 and the visualization writers. Every copy must agree exactly (same numpy
@@ -113,6 +114,33 @@ def test_anchors_match(qpo, dynamic):
     for ours, ref in zip(anchors.generate_anchors(neck, props),
                          janchors.generate_anchors(neck, props)):
         np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("patch,levels,scales,ratios", [
+    ((32, 32, 16), ["P2", "P3"], [8, 12], [[1, 1, 1], [1.5, 1, 0.8]]),
+    ((40, 24, 20), ["P1", "P3", "P4"], [6], [[1, 1, 1]]),
+    ((256, 256, 128), ["P2", "P3", "P4"], [16, 24, 32],
+     [[1, 1, 1], [1.5, 1, 0.8], [0.8, 1.2, 1.0]]),
+])
+def test_retina_anchors_match(patch, levels, scales, ratios):
+    """RetinaNet's anchors (host numpy), bit-exact: retina_amos's 1,345,536
+    among them."""
+    from transoar_tpu.models import retina as jretina
+    from transoar_tpu_torch.models import retina
+
+    cfg = {"augmentation": {"patch_size": list(patch)},
+           "retina": {"levels": levels, "anchor_scales": scales,
+                      "anchor_ratios": ratios}}
+    ours, counts = retina.build_anchors(cfg)
+    ref, ref_counts = jretina.build_anchors(cfg)
+    assert counts == ref_counts and ours.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(ours, ref)
+    level = int(levels[0][-1])
+    np.testing.assert_array_equal(
+        retina.generate_level_anchors(patch, level, scales, ratios),
+        jretina.generate_level_anchors(patch, level, scales, ratios))
+    if patch == (256, 256, 128):
+        assert len(ours) == 1_345_536
 
 
 def test_presets_match():

@@ -166,25 +166,20 @@ def test_criterion_gradient_flows_to_the_outputs(rng):
         assert torch.isfinite(v.grad).all() and v.grad.abs().sum() > 0, key
 
 
-@pytest.mark.parametrize("change,item", [
-    (lambda c: c.update(retina={}), "RetinaNet"),
-])
-def test_unported_criteria_raise(change, item):
-    cfg = tiny_config()
-    change(cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        tcrit.build_criterion(cfg)
-
-
 @pytest.mark.parametrize("change,kind,seg", [
     (lambda c: c["neck"].update(name="detr"), "SetCriterion", False),
     (lambda c: c["neck"].update(name="def_detr"), "SetCriterion", False),
     (lambda c: c["backbone"].update(use_seg_proxy_loss=True), "Criterion",
      True),
+    (lambda c: c.update(retina={}), "RetinaCriterion", False),
+    (lambda c: (c.update(retina={}),
+                c["backbone"].update(use_seg_proxy_loss=True)),
+     "RetinaCriterion", True),
 ])
 def test_criterion_dispatch(change, kind, seg):
     """The DETR necks take the set criterion, the seg proxy the focused one
-    with its seg losses (both raised before their port)."""
+    with its seg losses, a ``retina`` section RetinaNet's focal criterion
+    (Retina U-Net with the seg losses); each raised before its port."""
     cfg = tiny_config()
     change(cfg)
     crit = tcrit.build_criterion(cfg)

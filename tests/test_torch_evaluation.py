@@ -2,8 +2,11 @@
 attention weights ``return_weights=True`` exports (RoI and dense
 cross-attention) within the logits tolerance 2e-4, ``python -m
 transoar_tpu_torch.test --val`` against ``scripts/test.py`` on the same
-weights and split (``results_val.json`` within 1e-4), and the
-``import_checkpoint`` round trip (the forward bit-equal after import)."""
+weights and split (``results_val.json`` within 1e-4), for the flagship and
+for RetinaNet (its NMS decode with the config's thresholds), the
+``import_checkpoint`` round trip (the forward bit-equal after import), and
+the refusals that match the JAX CLIs (RetinaNet in ``predict`` and
+``import_checkpoint``)."""
 
 import argparse
 from types import SimpleNamespace
@@ -130,12 +133,84 @@ def test_test_cli_matches_scripts_test(tiny, monkeypatch):
             np.testing.assert_array_equal(kw[key][0], ref_kw[key][0])
 
 
-def test_test_cli_refuses_retina(tiny, monkeypatch):
+def test_test_cli_retina_matches_scripts_test(tiny, monkeypatch):
+    """A tiny RetinaNet run (K = 4 anchors a voxel, P2-P3) through both
+    CLIs: the port decodes with the config's ``nms_iou`` and
+    ``score_threshold`` (0.3 and 0.2 here, not the decode's defaults), as
+    ``scripts/test.py`` calls JAX's ``retina_inference``; the same
+    detections case by case (classes equal, scores 1e-4, boxes 1e-4 +
+    1e-3 relative: the forward's 2e-4 on the deltas, scaled by exp(delta))
+    and ``results_val.json`` within 1e-4."""
+    from scripts import test as jax_test_cli
+    from transoar_tpu.models.retina import build_retinanet
+    from transoar_tpu_torch.presets import tiny_config as port_tiny
+
     monkeypatch.chdir(tiny.root)
-    ckpt_lib.freeze_run_config(dict(tiny.cfg, retina={}),
-                               tiny.root / "runs" / "ret")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        test_cli.main(["--run", "ret", "--val", "--device", "cpu"])
+    cfg = port_tiny("retina", num_organs=3)
+    cfg["trainer"]["precision"] = "float32"
+    cfg["retina"].update(nms_iou=0.3, score_threshold=0.2)
+    cfg.update({k: tiny.cfg[k] for k in ("dataset", *INFO_KEYS)})
+    jmodel = build_retinanet(cfg)
+    state = create_train_state(jmodel, cfg, jnp.asarray(tiny.x),
+                               jax.random.key(0), 1)
+    params = randomize(jax.tree.map(np.asarray, state.params), 6)
+    state = state.replace(params=jax.tree.map(jnp.asarray, params))
+    jrun, run = tiny.root / "runs" / "jret", tiny.root / "runs" / "tret"
+    jckpt.freeze_run_config(cfg, jrun)
+    jckpt.save_checkpoint(jrun, "model_last", state, 1, 0.0)
+    port = build_model(cfg)
+    port.load_state_dict(state_dict_from_jax(params, cfg))
+    ckpt_lib.freeze_run_config(cfg, run)
+    ckpt_lib.save_checkpoint(run, "model_last", port)
+
+    fed = {"ref": [], "ours": []}
+    for side, cls in (("ref", jax_evaluator.DetectionEvaluator),
+                      ("ours", port_evaluator.DetectionEvaluator)):
+        def add(self, *args, _add=cls.add, _into=fed[side], **kwargs):
+            _into.append((args, kwargs))
+            return _add(self, *args, **kwargs)
+        monkeypatch.setattr(cls, "add", add)
+
+    data_dir = str(tiny.root / "dataset")
+    ref = jax_test_cli.Tester(argparse.Namespace(
+        run="jret", val=True, last=True, full_labeled=False,
+        save_preds=False, save_attn_map=True, data_dir=data_dir)).run()
+    tester = test_cli.Tester(argparse.Namespace(
+        run="tret", val=True, last=True, full_labeled=False,
+        save_preds=False, save_attn_map=True, data_dir=data_dir,
+        device="cpu"))
+    ours = tester.run()
+    assert load_json(run / "results_val.json") == ours
+    assert ours.keys() == ref.keys()
+    for key in ours:
+        np.testing.assert_allclose(ours[key], ref[key], atol=1e-4,
+                                   err_msg=key)
+    assert len(fed["ours"]) == len(fed["ref"]) == len(tester.case_ms) == 3
+    assert all(v >= 0 for ms in tester.case_ms for v in ms.values())
+    kept = 0
+    for (args, _), (ref_args, _) in zip(fed["ours"], fed["ref"]):
+        boxes, classes, scores = (a[0] for a in args[:3])
+        ref_boxes, ref_classes, ref_scores = (a[0] for a in ref_args[:3])
+        np.testing.assert_array_equal(classes, ref_classes)
+        np.testing.assert_allclose(scores, ref_scores, rtol=0, atol=1e-4)
+        # the forward's deltas agree within 2e-4; a box's size is its
+        # anchor's times exp(delta), so its error scales with the box
+        np.testing.assert_allclose(boxes, ref_boxes, rtol=1e-3, atol=1e-4)
+        assert scores.min() >= 0.2
+        kept += len(classes)
+    assert kept > 0
+
+
+def test_predict_refuses_retina(tiny):
+    """scripts/predict.py has no RetinaNet decode, and the port's predict
+    says so instead of failing inside the decode."""
+    from transoar_tpu_torch import predict
+    from transoar_tpu_torch.presets import tiny_config as port_tiny
+
+    run = tiny.root / "runs" / "pret"
+    ckpt_lib.freeze_run_config(port_tiny("retina"), run)
+    with pytest.raises(ValueError, match="scripts/predict.py"):
+        predict.load_predictor(run, device="cpu")
 
 
 def test_import_checkpoint_round_trip(tiny, monkeypatch):
@@ -183,11 +258,13 @@ def test_import_checkpoint_round_trip(tiny, monkeypatch):
                                 "--config", str(cfg_path), "--name", "x"])
 
 
-@pytest.mark.parametrize("family", ["refine", "seg", "detr", "def_detr"])
+@pytest.mark.parametrize("family", ["refine", "seg", "detr", "def_detr",
+                                    "retina"])
 def test_import_checkpoint_families(tiny, monkeypatch, family):
     """The refine and the seg proxy import through the reference layout (a
-    strict load, then the same forward); the DETR necks, whose reference
-    branches this checkout lacks, refuse with a clear error."""
+    strict load, then the same forward); the DETR necks and RetinaNet, whose
+    reference branches this checkout lacks, refuse with a clear error, as
+    scripts/import_torch_checkpoint.py does for RetinaNet."""
     from transoar_tpu_torch.presets import tiny_config as port_tiny
 
     monkeypatch.chdir(tiny.root)
@@ -199,8 +276,9 @@ def test_import_checkpoint_families(tiny, monkeypatch, family):
     cfg_path.write_text(yaml.safe_dump(cfg))
     args = ["--checkpoint", str(tiny.root / f"{family}.pt"),
             "--config", str(cfg_path)]
-    if family in ("detr", "def_detr"):
-        with pytest.raises(ValueError, match=f"{family} neck"):
+    if family in ("detr", "def_detr", "retina"):
+        want = "RetinaNet" if family == "retina" else f"{family} neck"
+        with pytest.raises(ValueError, match=want):
             import_checkpoint.main(args)
         return
     target = import_checkpoint.main(args)

@@ -39,7 +39,9 @@ for name in ("transoar_tpu_torch.predict", "transoar_tpu_torch.train",
              "transoar_tpu_torch.ops.kernels.packed_conv",
              "transoar_tpu_torch.ops.kernels.window_attention",
              "transoar_tpu_torch.ops.kernels.conv2d",
-             "transoar_tpu_torch.models.swin"):
+             "transoar_tpu_torch.models.swin",
+             "transoar_tpu_torch.models.retina",
+             "transoar_tpu_torch.ops.nms"):
     assert name in names, name
 print(len(names))
 """ % SCRIPTS

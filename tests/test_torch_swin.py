@@ -1,7 +1,7 @@
 """The port's Swin modules (transoar_tpu_torch/models/swin.py) against the
 JAX package's, with the same seeded weights bridged by utils/weights.py:
 SwinBlock (shift off and on, through the JAX flat-window path),
-PatchMerging and EncoderSwinBlock, forward and parameter gradients, in f32
+PatchMerging, ConvPatchMerging and EncoderSwinBlock, forward and parameter gradients, in f32
 and in eval mode (no DropPath). Tolerances: the two LayerNorms differ in
 their variance formula (one-pass in JAX, two-pass in torch), which leaves
 f32 rounding-level differences: forward atol 2e-5, gradients rel-L2 1e-4.
@@ -29,7 +29,10 @@ def _grads(module, params, x):
     return np.asarray(out), jax.tree.map(np.asarray, gp), np.asarray(gx)
 
 
-def _compare(port, jmodule, params, to_sd, x, call=None):
+def _compare(port, jmodule, params, to_sd, x, call=None, floor=0.0):
+    """Forward atol 2e-5, every gradient within rel-L2 1e-4; a parameter
+    whose gradient is below ``floor`` times the largest one's norm (zero in
+    theory, float noise in both) must stay that small on both sides."""
     out, gp, gx = _grads(jmodule, params, x)
     load(port, to_sd(params))
     xt = torch.tensor(x, requires_grad=True)
@@ -39,7 +42,11 @@ def _compare(port, jmodule, params, to_sd, x, call=None):
     ref = weights.to_torch(to_sd(gp))
     grads = dict(port.named_parameters())
     assert set(grads) == set(ref)
+    largest = max(float(g.norm()) for g in ref.values())
     for name, g in ref.items():
+        if float(g.norm()) < floor * largest:
+            assert float(grads[name].grad.norm()) < 10 * floor * largest
+            continue
         rel = float((grads[name].grad - g).norm() / g.norm())
         assert rel < 1e-4, f"{name}: rel-L2 {rel:.2e}"
     rel = np.linalg.norm(xt.grad.numpy() - gx) / np.linalg.norm(gx)
@@ -83,9 +90,32 @@ def test_encoder_swin_block_matches_jax():
     _compare(port, jstage, params, weights.swin_stage, x)
 
 
-def test_conv_merging_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        swin.EncoderSwinBlock(8, 1, 2, (2, 2, 2), conv_merging=True)
+def test_conv_merging_matches_jax():
+    """``swin.conv_merging``: ConvPatchMerging (2x2x2 stride-2 conv,
+    InstanceNorm, ReLU) alone and as an EncoderSwinBlock's merge; odd sizes
+    raise, as the JAX patch matmul asserts."""
+    x = np.random.default_rng(6).normal(size=(2, 6, 4, 8, 8)) \
+        .astype(np.float32)
+    jmerge = jswin.ConvPatchMerging(dim=8, dtype=jax.numpy.float32)
+    params = init_params(jmerge, x, seed=7)
+    port = swin.ConvPatchMerging(8, dtype=torch.float32)
+    _compare(port, jmerge, params, weights.patch_merging, x)
+    assert port(torch.from_numpy(x)).shape == (2, 3, 2, 4, 16)
+    with pytest.raises(ValueError, match="even"):
+        port(torch.zeros(1, 5, 4, 4, 8))
+
+    x = x[:1, :, :, :4]
+    jstage = jswin.EncoderSwinBlock(depth=1, num_heads=2,
+                                    window_size=(2, 2, 2), conv_merging=True,
+                                    blocked_attn=False,
+                                    dtype=jax.numpy.float32)
+    params = init_params(jstage, x, seed=8)
+    port = swin.EncoderSwinBlock(8, 1, 2, (2, 2, 2), conv_merging=True,
+                                 dtype=torch.float32, spatial=(6, 4, 4))
+    assert isinstance(port.downsample, swin.ConvPatchMerging)
+    # the merge's InstanceNorm removes any per-channel constant, so the
+    # gradient of the MLP's output bias is zero but for float noise
+    _compare(port, jstage, params, weights.swin_stage, x, floor=1e-5)
 
 
 def test_device_constants_are_cached():

@@ -2,7 +2,8 @@
 checkpoints -> ``--auto_resume`` -> ``predict`` from the run directory;
 with the shipped augmentation setting (host, through the native loader)
 train -> ``test --val`` -> ``predict`` for the flagship, the SwinFPN, the
-seg proxy, DETR and Deformable DETR; one step with ``on_device: true`` (``chip_smoke.py``'s training, test and
+seg proxy, DETR and Deformable DETR, train -> ``test --val`` for RetinaNet
+and Retina U-Net (gradient accumulation on the latter); one step with ``on_device: true`` (``chip_smoke.py``'s training, test and
 on-device phases, rehearsed at tiny size)."""
 
 import argparse
@@ -258,3 +259,35 @@ def test_family_train_test_predict(tmp_path, monkeypatch, restore_logging,
             "def_detr": 0}[family]
     assert len(maps) == want
     _predict(tmp_path, family, cfg["neck"]["num_organs"])
+
+
+@pytest.mark.parametrize("family", ["retina", "retina_unet"])
+def test_retina_train_validate_test(tmp_path, monkeypatch, restore_logging,
+                                    family):
+    """RetinaNet and Retina U-Net as retina_amos ships them (host
+    augmentation, loader threads) -> the validations decoded with the
+    NMS -> checkpoint -> test --val; Retina U-Net with
+    ``grad_accum_steps: 2`` (one update from its two steps); predict
+    refuses the run, as scripts/predict.py has no RetinaNet decode."""
+    cfg = tiny_config(family)
+    cfg["trainer"]["num_workers"] = 2
+    if family == "retina_unet":
+        cfg["trainer"]["grad_accum_steps"] = 2
+    cfg, data_dir = _setup(tmp_path, monkeypatch, cfg, family)
+    trainer = train.main(["--config", _write(tmp_path / "r.yaml", cfg),
+                          "--device", "cpu"])
+    _check_host_augmented(trainer, 4)
+    losses = trainer.history[-1]["train"]
+    assert np.isfinite(losses["total"]) and losses["cls"] > 0
+    assert (losses["segdice"] > 0) == (family == "retina_unet")
+    assert [h["epoch"] for h in trainer.history if "metrics" in h] == [0, 1]
+    assert all(np.isfinite(h["metrics"]["mAP_coco"])
+               for h in trainer.history if "metrics" in h)
+    steps = 1 if family == "retina_unet" else 2
+    assert trainer.scheduler.last_epoch == steps
+    scores = test.main(["--run", family, "--val", "--device", "cpu",
+                        "--data_dir", data_dir])
+    assert np.isfinite(scores["mAP_coco"])
+    with pytest.raises(ValueError, match="scripts/predict.py"):
+        predict.main(["--run", family, "--input", "x.nii.gz", "--device",
+                      "cpu"])

@@ -233,6 +233,62 @@ def test_schedule_and_groups():
         scheduler.step()
     # optax's piecewise-constant schedule: x0.1 from step lr_drop * 3 on
     assert seen == pytest.approx([2e-4] * 6 + [2e-5] * 2)
+    # grad_accum_steps: the update, and the schedule with it, every k-th
+    # call only
     cfg["trainer"]["grad_accum_steps"] = 2
-    with pytest.raises(NotImplementedError, match="grad_accum_steps"):
-        tstate.make_optimizer(model, cfg, 3)
+    optimizer, scheduler = tstate.make_optimizer(model, cfg, 3)
+    update = tstate.UpdateRule(optimizer, scheduler, model.parameters(),
+                               accum=2)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    assert [update() for _ in range(5)] == [False, True, False, True, False]
+    assert scheduler.last_epoch == 2 and update.mini_step == 1
+
+
+@pytest.mark.parametrize("accum,clip", [(2, 0.5), (3, -1.0)])
+def test_grad_accumulation_matches_optax(accum, clip):
+    """``trainer.grad_accum_steps`` k: the port's UpdateRule against the JAX
+    package's ``optax.MultiSteps(chain(clip, multi_transform(adamw)))``
+    over 4k calls of seeded gradients (two rate groups, the clip active,
+    the schedule's drop after the second update): the parameters after
+    every call within 1e-6."""
+    import optax
+
+    cfg = {"trainer": {"lr": 1e-2, "lr_backbone": 3e-3, "weight_decay": 0.1,
+                       "lr_drop": 1, "clip_max_norm": clip,
+                       "grad_accum_steps": accum}}
+    rng = np.random.default_rng(accum)
+    init = {"backbone": {"w": rng.normal(size=(3, 4))},
+            "neck": {"w": rng.normal(size=(5,))}}
+    init = jax.tree.map(lambda a: a.astype(np.float32), init)
+    tx = make_optimizer(cfg, 2)
+    jparams = jax.tree.map(jnp.asarray, init)
+    opt_state = tx.init(jparams)
+
+    model = torch.nn.Module()
+    for name in ("backbone", "neck"):
+        part = torch.nn.Module()
+        part.w = torch.nn.Parameter(torch.from_numpy(init[name]["w"]))
+        model.add_module(f"_{name}", part)
+    optimizer, scheduler = tstate.make_optimizer(model, cfg, 2)
+    update = tstate.UpdateRule(optimizer, scheduler, model.parameters(),
+                               clip=clip, accum=accum)
+    applied = []
+    for call in range(4 * accum):
+        grads = {name: {"w": (3 * rng.normal(size=init[name]["w"].shape))
+                        .astype(np.float32)} for name in init}
+        updates, opt_state = tx.update(jax.tree.map(jnp.asarray, grads),
+                                       opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        optimizer.zero_grad(set_to_none=True)
+        for name in init:
+            getattr(model, f"_{name}").w.grad = torch.from_numpy(
+                grads[name]["w"])
+        applied.append(update())
+        for name in init:
+            np.testing.assert_allclose(
+                getattr(model, f"_{name}").w.detach().numpy(),
+                np.asarray(jparams[name]["w"]), rtol=1e-6, atol=1e-6,
+                err_msg=f"call {call}, {name}")
+    assert applied == ([False] * (accum - 1) + [True]) * 4
+    assert tstate.current_lrs(optimizer)["neck"] == pytest.approx(1e-3)

@@ -10,7 +10,8 @@ so the import is a strict ``load_state_dict`` into ``build_model(config)``:
 a missing, unexpected or misshapen tensor raises. The Focused Decoder
 family only (the flagship, its refine and seg-proxy variants, SwinFPN): a
 ``detr`` or ``def_detr`` config raises, as the reference's DETR branches
-are not in this checkout. It writes
+are not in this checkout, and so does one with a ``retina`` section (as
+``scripts/import_torch_checkpoint.py``). It writes
 ``runs/<name>/`` with the frozen config and a training checkpoint
 (``model_best_<metric>.pt`` when the file records a best metric, else
 ``model_last.pt``) that carries the file's epoch and best metric and a
@@ -56,12 +57,14 @@ def import_checkpoint(config, state_dict, epoch, best, run_name):
     """Load ``state_dict`` strictly into the model of ``config`` and write
     the run; returns the checkpoint's path."""
     neck = config["neck"].get("name", "foc_attn")
-    if neck != "foc_attn":
+    if neck != "foc_attn" or "retina" in config:
+        model = "RetinaNet" if "retina" in config else f"the {neck} neck"
         raise ValueError(
-            f"no reference checkpoint layout for the {neck} neck: the "
-            f"reference's DETR branches are not in this checkout, so their "
-            f"parameter names are unknown; import_checkpoint reads the "
-            f"Focused Decoder family only")
+            f"no reference checkpoint layout for {model}: the reference's "
+            f"DETR and retina-unet branches are not in this checkout, so "
+            f"their parameter names are unknown; import_checkpoint reads the "
+            f"Focused Decoder family only (as "
+            f"scripts/import_torch_checkpoint.py)")
     model = build_model(config, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     optimizer, scheduler = make_optimizer(model, config)

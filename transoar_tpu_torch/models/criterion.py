@@ -15,7 +15,8 @@
   softmax, background excluded, smooth 1e-5) of the seg-proxy head against
   the label batch (foreground / background under ``fg_bg``).
 - ``build_criterion``: this Criterion for the focused neck, the DETR set
-  criterion (``models/detr.SetCriterion``) for ``detr`` / ``def_detr``.
+  criterion (``models/detr.SetCriterion``) for ``detr`` / ``def_detr``,
+  ``models/retina.RetinaCriterion`` for a ``retina`` section.
 
 The loss keys follow the reference, so ``total_loss`` weighs each by
 ``loss_coefs[key.split('_')[0]]``.
@@ -168,12 +169,12 @@ class Criterion:
 
 
 def build_criterion(config):
-    """The focused neck's Criterion, the DETR necks' SetCriterion;
-    RetinaNet raises."""
+    """The focused neck's Criterion, the DETR necks' SetCriterion, and
+    RetinaNet's RetinaCriterion for a config with a ``retina`` section."""
     if "retina" in config:
-        raise NotImplementedError(
-            "the RetinaNet criterion is not ported yet: ROADMAP Queue 1, "
-            "item 6 (RetinaNet / Retina U-Net)")
+        from transoar_tpu_torch.models.retina import RetinaCriterion
+
+        return RetinaCriterion(config)
     if config["neck"].get("name", "foc_attn") == "foc_attn":
         return Criterion(config)
     return SetCriterion(config)

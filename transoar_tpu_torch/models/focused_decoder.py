@@ -7,7 +7,8 @@ here (the JAX module imports jax); the parity tests pin them to the
 originals.
 
 - ``FocusedAttn`` keeps the reference quirk: queries are projected with the
-  *key* projection (shared-QK attention), and the 1/sqrt(head_dim) scale is
+  *key* projection (shared-QK attention; ``neck.share_qk_proj: false``
+  gives them their own ``q_proj``), and the 1/sqrt(head_dim) scale is
   applied after the projection. Its default RoI path gathers each organ's
   tokens and runs dense attention over the crop, with f32 logits, the
   ``MASKED_BIAS`` on padded slots and an f32 softmax; the dense path adds the
@@ -98,11 +99,15 @@ class FocusedAttn(nn.Module):
     PROJ_DROP = 0.1  # fixed, whatever neck.dropout says, as the JAX layer
 
     def __init__(self, d_model: int, num_heads: int, num_organs: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 share_qk_proj: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.num_organs = num_organs
         self.dtype = dtype
+        if not share_qk_proj:  # else q goes through k_proj, as the reference
+            self.q_proj = Linear(d_model, d_model, bias=False, dtype=dtype,
+                                 init="xavier")
         self.k_proj = Linear(d_model, d_model, bias=False, dtype=dtype,
                              init="xavier")
         self.v_proj = Linear(d_model, d_model, bias=False, dtype=dtype,
@@ -125,7 +130,8 @@ class FocusedAttn(nn.Module):
 
         kh = self.k_proj(k).unflatten(-1, (H, hd))
         vh = self.v_proj(v).unflatten(-1, (H, hd))
-        qh = self.k_proj(q).unflatten(-1, (H, hd)) * hd ** -0.5
+        q_proj = getattr(self, "q_proj", self.k_proj)
+        qh = q_proj(q).unflatten(-1, (H, hd)) * hd ** -0.5
 
         if roi is not None:
             idx, valid = roi
@@ -165,13 +171,15 @@ class FocusedDecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, num_organs: int,
                  dim_feedforward: int, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 share_qk_proj: bool = True):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiHeadSelfAttention(d_model, num_heads, dropout,
                                                 dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
-        self.cross_attn = FocusedAttn(d_model, num_heads, num_organs, dtype)
+        self.cross_attn = FocusedAttn(d_model, num_heads, num_organs, dtype,
+                                      share_qk_proj)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype,
                               init="xavier")
@@ -212,18 +220,13 @@ class FocusedDecoder(nn.Module):
     def __init__(self, config: Dict[str, Any], attn_bias: np.ndarray,
                  roi=None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if not config.get("share_qk_proj", True):
-            raise NotImplementedError(
-                "separate q_proj (share_qk_proj: false) is not ported yet: "
-                "ROADMAP Queue 1, item 7 (config keys no shipped config "
-                "sets); the reference and the flagship use shared-QK "
-                "attention")
         C = config["hidden_dim"]
         self.dtype = dtype
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
             FocusedDecoderLayer(C, config["nheads"], config["num_organs"],
                                 config["dim_feedforward"],
-                                float(config.get("dropout", 0.0)), dtype)
+                                float(config.get("dropout", 0.0)), dtype,
+                                bool(config.get("share_qk_proj", True)))
             for _ in range(config["dec_layers"]))})
         self.register_buffer("attn_bias", torch.as_tensor(attn_bias),
                              persistent=False)

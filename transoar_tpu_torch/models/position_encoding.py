@@ -1,10 +1,15 @@
-"""3D sine positional encoding (port of
-``transoar_tpu/models/position_encoding.py``, sine path).
+"""3D positional encodings (port of
+``transoar_tpu/models/position_encoding.py``).
 
-Per axis ``2 * ceil(C / 6)`` channels laid out block-wise
+Sine: per axis ``2 * ceil(C / 6)`` channels laid out block-wise
 ``[sin(p0), sin(p2), ..., cos(p1), cos(p3), ...]`` over a normalized
 half-offset grid, channel order (y, x, z), truncated to C channels —
-reference position_encoding.py:10-51. Channels-last ``[S0, S1, S2, C]``.
+reference position_encoding.py:10-51. Learned (``pos_encoding: learned``):
+three ``[50, 2 * ceil(C / 6)]`` tables, U[0, 1) at init, named as the
+reference's ``row_embed`` (axis 0), ``col_embed`` (axis 1) and
+``depth_embed`` (axis 2), broadcast over the grid in the channel-block
+order col, row, depth, truncated to C (reference
+position_encoding.py:54-86). Channels-last ``[S0, S1, S2, C]``.
 """
 
 from __future__ import annotations
@@ -64,12 +69,49 @@ class PositionEmbeddingSine3D(nn.Module):
         return table.expand(x.shape[0], *table.shape)
 
 
+class _Table(nn.Module):
+    """One learned axis table ``weight`` [positions, channels], U[0, 1) at
+    init (flax ``uniform(scale=1.0)``)."""
+
+    def __init__(self, positions: int, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(positions, channels))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.uniform_(0.0, 1.0, generator=generator)
+
+
+class PositionEmbeddingLearned3D(nn.Module):
+    """x [B, S0, S1, S2, C] -> the learned tables outer-summed over the
+    grid, [B, S0, S1, S2, C] in ``dtype``."""
+
+    def __init__(self, channels: int, max_positions: int = 50,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.channels = channels
+        self.dtype = dtype
+        per_axis = int(np.ceil(channels / 6) * 2)
+        self.row_embed = _Table(max_positions, per_axis)
+        self.col_embed = _Table(max_positions, per_axis)
+        self.depth_embed = _Table(max_positions, per_axis)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s0, s1, s2 = x.shape[1:4]
+        e0 = self.row_embed.weight[:s0][:, None, None, :]
+        e1 = self.col_embed.weight[:s1][None, :, None, :]
+        e2 = self.depth_embed.weight[:s2][None, None, :, :]
+        shape = (s0, s1, s2, e0.shape[-1])
+        pos = torch.cat([e1.expand(shape), e0.expand(shape),
+                         e2.expand(shape)], dim=-1)
+        pos = pos[..., :self.channels].to(self.dtype)
+        return pos.expand(x.shape[0], *pos.shape)
+
+
 def build_pos_enc(kind: str, channels: int,
                   dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     if kind == "sine":
         return PositionEmbeddingSine3D(channels, dtype)
     if kind == "learned":
-        raise NotImplementedError(
-            "the learned position encoding is not ported yet: ROADMAP "
-            "Queue 1, item 7 (config keys no shipped config sets)")
+        return PositionEmbeddingLearned3D(channels, dtype=dtype)
     raise ValueError(f"unknown positional encoding: {kind}")

@@ -10,7 +10,9 @@ backbones/encoder_blocks.py:56-400``), flat-window path only:
   (``torch.roll``), window attention, un-shift, crop, DropPath on both
   residual branches, LayerNorm, MLP with exact-erf GELU.
 - ``PatchMerging``: the 2x2x2 neighbourhood concat in the channel-block
-  order the reference weights depend on, LayerNorm, Linear to 2C.
+  order the reference weights depend on, LayerNorm, Linear to 2C;
+  ``ConvPatchMerging`` (``swin.conv_merging``) a 2x2x2 stride-2 conv,
+  InstanceNorm and ReLU (``downsample.conv``, ``downsample.norm``).
 - ``EncoderSwinBlock``: one encoder stage, ``depth`` blocks alternating
   unshifted and shifted windows, then the merge.
 
@@ -35,7 +37,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from transoar_tpu_torch.models.layers import LayerNorm, Linear, drop_path
+from transoar_tpu_torch.models.layers import (InstanceNorm, LayerNorm,
+                                              Linear, drop_path)
+from transoar_tpu_torch.ops.conv3d import Conv3d
 from transoar_tpu_torch.ops.kernels.window_attention import \
     fused_window_attention
 
@@ -259,6 +263,24 @@ class PatchMerging(nn.Module):
         return self.reduction(self.norm(x))
 
 
+class ConvPatchMerging(nn.Module):
+    """``swin.conv_merging``: a 2x2x2 stride-2 conv without bias, then
+    InstanceNorm and ReLU (JAX ``ConvPatchMerging``, swin.py:391-402),
+    children ``conv`` and ``norm``. Every spatial size must be even, as the
+    JAX patch matmul asserts."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv = Conv3d(dim, 2 * dim, 2, stride=2, bias=False, dtype=dtype)
+        self.norm = InstanceNorm(2 * dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if any(n % 2 for n in x.shape[1:4]):
+            raise ValueError(f"conv merging needs even sizes, got "
+                             f"{tuple(x.shape[1:4])}")
+        return F.relu(self.norm(self.conv(x)))
+
+
 class EncoderSwinBlock(nn.Module):
     """One encoder stage: ``depth`` SwinBlocks at the incoming channel count
     (odd blocks shifted), then patch merging (downsample x2, channels x2).
@@ -272,18 +294,14 @@ class EncoderSwinBlock(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  spatial: Sequence[int] | None = None):
         super().__init__()
-        if conv_merging:
-            raise NotImplementedError(
-                "swin.conv_merging (ConvPatchMerging) is not ported yet: "
-                "ROADMAP Queue 1, item 7 (config keys no shipped config "
-                "sets)")
         rates = list(drop_path) + [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, shift=i % 2 == 1,
                       mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                       drop_path=rates[i], dtype=dtype, spatial=spatial)
             for i in range(depth))
-        self.downsample = PatchMerging(dim, dtype)
+        self.downsample = (ConvPatchMerging if conv_merging
+                           else PatchMerging)(dim, dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -17,6 +17,8 @@ feature levels, ``models/detr.py``). Names follow the reference
 - Aux outputs are stacked ``[L-1, B, Q, .]``.
 - With ``use_seg_proxy_loss`` a 1x1x1 ``_seg_head`` on P0 gives
   ``pred_seg`` (2 classes under ``fg_bg``, else organs + 1), f32.
+- ``build_model`` builds RetinaNet (``models/retina.py``) for a config with
+  a ``retina`` section.
 """
 
 from __future__ import annotations
@@ -184,10 +186,10 @@ def build_transoarnet(config, dtype: Optional[torch.dtype] = None,
 
 def build_model(config, dtype: Optional[torch.dtype] = None, device=None,
                 generator: Optional[torch.Generator] = None):
-    """Top-level dispatch: a ``retina`` config section selects RetinaNet,
-    otherwise TransoarNet."""
+    """Top-level dispatch: a ``retina`` config section selects RetinaNet
+    (``models/retina.py``), otherwise TransoarNet."""
     if "retina" in config:
-        raise NotImplementedError(
-            "RetinaNet is not ported yet: ROADMAP Queue 1, item 6 "
-            "(RetinaNet / Retina U-Net)")
+        from transoar_tpu_torch.models.retina import build_retinanet
+
+        return build_retinanet(config, dtype, device, generator)
     return build_transoarnet(config, dtype, device, generator)

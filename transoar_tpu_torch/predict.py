@@ -13,7 +13,9 @@ training grid, the test-time intensity window, the forward under
 cxcyczwhd (array-axis order), voxel corners on the RAS grid and world (mm,
 RAS) corners. ``--save_boxmask`` also writes the boxes as a NIfTI label
 volume on the RAS grid. The run directory ``runs/<experiment>`` holds
-``config.json`` and a port checkpoint (``training/checkpoints.py``).
+``config.json`` and a port checkpoint (``training/checkpoints.py``). A
+RetinaNet run is refused, as the JAX CLI has no decode for it; ``test``
+serves that family.
 """
 
 from __future__ import annotations
@@ -44,6 +46,12 @@ def load_predictor(path_to_run, prefer_best=True, device="cuda"):
     model's outputs as numpy arrays."""
     device = torch.device(device)
     config = ckpt_lib.load_run_config(path_to_run)
+    if "retina" in config:
+        raise ValueError(
+            "predict serves the one-box-per-organ decoders only: "
+            "scripts/predict.py (predict_case, lines 114-122) has no "
+            "RetinaNet decode either; evaluate a RetinaNet run with "
+            "python -m transoar_tpu_torch.test --run <name>")
     model = build_model(config, device=device)
     ckpt = ckpt_lib.pick_checkpoint(path_to_run, prefer_best=prefer_best)
     model.load_state_dict(ckpt_lib.load_checkpoint(ckpt, device))

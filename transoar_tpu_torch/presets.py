@@ -11,9 +11,10 @@ and dry runs, which have no dataset and no trained weights on disk.
 - ``model_config``: any shipped ``config/<name>.yaml`` as shipped, with
   synthetic dataset statistics (foc_dec_seg_amos, foc_dec_refine_amos,
   detr_amos, def_detr_amos, ...).
-- ``tiny_config(family)``: tiny variants of the seg-proxy, refine, DETR and
-  Deformable-DETR families, built on ``tiny_flagship_config`` with the
-  family's keys set as its shipped config sets them.
+- ``retina_unet_config``: retina_amos with the seg proxy (Retina U-Net).
+- ``tiny_config(family)``: tiny variants of the seg-proxy, refine, DETR,
+  Deformable-DETR and RetinaNet families, built on ``tiny_flagship_config``
+  with the family's keys set as its shipped config sets them.
 - ``save_random_run``: a run directory (``training/checkpoints.py`` layout)
   whose every parameter is drawn from a seed, for ``predict`` to restore.
 - ``write_ct_volumes``: CT-like int16 NIfTI volumes with LPS-style affines,
@@ -132,9 +133,28 @@ def tiny_swin_config(num_organs=6, patch=(40, 40, 16)):
     return fill_synthetic_stats(cfg)
 
 
+def retina_unet_config(batch_size=None, patch_size=None):
+    """Retina U-Net: retina_amos with ``backbone.use_seg_proxy_loss: true``,
+    as the yaml's header says (the decoder down to P0 and the 1x1x1 seg
+    head beside the towers)."""
+    cfg = model_config("retina_amos", batch_size, patch_size)
+    cfg["experiment_name"] = "retina_unet_amos"
+    cfg["backbone"]["use_seg_proxy_loss"] = True
+    return cfg
+
+
 # the shipped config each tiny family takes its keys from
 FAMILIES = {"seg": "foc_dec_seg_amos", "refine": "foc_dec_refine_amos",
-            "detr": "detr_amos", "def_detr": "def_detr_amos"}
+            "detr": "detr_amos", "def_detr": "def_detr_amos",
+            "retina": "retina_amos", "retina_unet": "retina_amos"}
+
+# the tiny RetinaNet's section: tests/test_retina.py's sizes, with K = 4
+# anchors a voxel (2 scales x 2 ratios) so that the anchor order counts
+TINY_RETINA = {"levels": ["P2", "P3"], "anchor_scales": [8, 12],
+               "anchor_ratios": [[1, 1, 1], [1.5, 1, 0.8]],
+               "tower_depth": 1, "tower_channels": 8, "pos_iou": 0.4,
+               "neg_iou": 0.3, "focal_alpha": 0.25, "focal_gamma": 2.0,
+               "nms_iou": 0.5, "score_threshold": 0.05}
 
 
 def tiny_config(family, num_organs=6, patch=(32, 32, 16)):
@@ -146,7 +166,11 @@ def tiny_config(family, num_organs=6, patch=(32, 32, 16)):
       6 heads x 16, 2 points, 2 layers;
     - ``detr``: the DETR neck, 20 queries, 8 heads, 3 layers, dense
       cross-attention over P2, the Hungarian set criterion;
-    - ``def_detr``: Deformable DETR over P2-P3, 6 heads, 2 points.
+    - ``def_detr``: Deformable DETR over P2-P3, 6 heads, 2 points;
+    - ``retina``: RetinaNet over P2-P3 (``TINY_RETINA``: 4 anchors a voxel,
+      1,024 + 128 at 32x32x16, one tower conv of 8 channels before
+      ``out``);
+    - ``retina_unet``: the same with the seg proxy.
     """
     cfg = tiny_flagship_config(num_organs, patch)
     shipped = get_config(FAMILIES[family])
@@ -167,6 +191,11 @@ def tiny_config(family, num_organs=6, patch=(32, 32, 16)):
     if family == "def_detr":
         neck.update(feature_levels=["P2", "P3"], n_points=2)
         backbone["out_fmaps"] = ["P2", "P3"]
+    if family in ("retina", "retina_unet"):
+        cfg["retina"] = copy.deepcopy(TINY_RETINA)
+        backbone["out_fmaps"] = ["P2", "P3"]
+        backbone["use_seg_proxy_loss"] = family == "retina_unet"
+        cfg["experiment_name"] = f"tiny_{family}"
     return cfg
 
 

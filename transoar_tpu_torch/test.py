@@ -8,19 +8,25 @@
 Loads the frozen ``runs/<run>/config.json``, restores the best (or, with
 ``--last``, the last) checkpoint, windows each test (or ``--val``) case's
 intensities as training does, decodes one box per organ
-(``training/inference.py``), runs the per-class evaluator and writes
+(``training/inference.py``) or, for RetinaNet, its anchors with the
+config's ``retina.nms_iou`` and ``retina.score_threshold`` on the card
+(``models/retina.retina_inference``; no attention maps, as
+``scripts/test.py``), runs the per-class evaluator and writes
 ``runs/<run>/results_<split>.json`` with the full mAP family.
 ``--full_labeled`` skips cases missing an organ; ``--save_preds`` writes
 .ply point clouds and box wireframes, ``--save_attn_map`` the last decoder
 layer's attention maps as PNGs (both need numpy and PIL, scipy for the
 maps; the Deformable-DETR neck has no dense map and exports none). Runs on
-``cuda`` unless asked for the CPU.
+``cuda`` unless asked for the CPU. ``Tester.case_ms`` holds each case's
+forward and decode ms (CUDA events on the card, the host clock on the
+CPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 from transoar_tpu_torch.data.dataset import get_loader
 from transoar_tpu_torch.data.transforms import eval_transform
 from transoar_tpu_torch.eval.evaluator import build_evaluator
+from transoar_tpu_torch.models.retina import retina_inference
 from transoar_tpu_torch.models.transoarnet import build_model
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training.inference import inference
@@ -57,18 +64,46 @@ class Tester:
                                   data_dir=args.data_dir, batch_size=1)
         self._evaluator = build_evaluator(self._config, per_class=True)
         self._num_organs = self._config["neck"]["num_organs"]
+        self._is_retina = "retina" in self._config
+        self.case_ms = []  # {"forward": ms, "decode": ms} per case
 
     @torch.inference_mode()
     def _forward(self, image):
-        """Host batch [1, S0, S1, S2, 1] -> the model's outputs as numpy,
-        with the intensity window of training and validation (the
+        """Host batch [1, S0, S1, S2, 1] -> the model's outputs on the
+        device, with the intensity window of training and validation (the
         reference windows every split, transforms.py:170-177)."""
         x = torch.as_tensor(image, dtype=torch.float32).to(self._device)
         stats = self._config.get("foreground_voxel_statistics")
         if stats is not None:
             x = eval_transform(x, stats)
-        out = self._model(x, return_weights=self._args.save_attn_map)
-        return {k: v.float().cpu().numpy() for k, v in out.items()}
+        if self._is_retina:
+            return self._model(x)
+        return self._model(x, return_weights=self._args.save_attn_map)
+
+    def _decode(self, out):
+        """(boxes, classes, scores) lists and the outputs on the host (none
+        for RetinaNet, decoded where it ran)."""
+        if self._is_retina:
+            rcfg = self._config["retina"]
+            return retina_inference(
+                out, self._model.anchors, self._num_organs,
+                iou_threshold=rcfg.get("nms_iou", 0.5),
+                score_threshold=rcfg.get("score_threshold", 0.05)), {}
+        out = {k: v.float().cpu().numpy() for k, v in out.items()}
+        return inference(out, self._num_organs), out
+
+    def _mark(self):
+        if self._device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _elapsed_ms(self, a, b):
+        if self._device.type != "cuda":
+            return 1e3 * (b - a)
+        b.synchronize()
+        return a.elapsed_time(b)
 
     def run(self):
         num_classes = self._num_organs
@@ -87,8 +122,14 @@ class Tester:
             if self._args.full_labeled and present.sum() < num_classes:
                 continue
 
+            marks = [self._mark()]
             out = self._forward(batch["image"])
-            boxes, classes, scores = inference(out, num_classes)
+            marks.append(self._mark())
+            (boxes, classes, scores), out = self._decode(out)
+            marks.append(self._mark())
+            self.case_ms.append({
+                "forward": self._elapsed_ms(*marks[:2]),
+                "decode": self._elapsed_ms(*marks[1:])})
             tgt_boxes = targets["boxes"][0].cpu().numpy()
             gt_classes = np.nonzero(present)[0] + 1
             self._evaluator.add(boxes, classes, scores,
@@ -111,12 +152,13 @@ class Tester:
                 save_attn_visualization(out, self._config, attn_dir, case_id,
                                         seg=np.asarray(batch["seg"])[0])
             elif self._args.save_attn_map and not warned_no_attn:
-                # a deformable neck samples sparse points: there is no dense
-                # map to export (as scripts/test.py)
+                # a deformable neck samples sparse points and RetinaNet has
+                # no attention: no dense map to export (as scripts/test.py)
                 warned_no_attn = True
-                logger.warning("--save_attn_map: the %s neck has no "
-                               "attention map; none exported",
-                               self._config["neck"].get("name"))
+                logger.warning("--save_attn_map: %s has no attention map; "
+                               "none exported",
+                               "RetinaNet" if self._is_retina else
+                               f"the {self._config['neck'].get('name')} neck")
 
         scores_dict = self._evaluator.eval()
         write_json(scores_dict,
@@ -126,9 +168,7 @@ class Tester:
         return scores_dict
 
 
-def main(argv=None):
-    """Evaluate ``--run``; returns the scores written to
-    ``results_<split>.json``."""
+def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--run", type=str, required=True,
                         help="Experiment name under ./runs.")
@@ -146,7 +186,13 @@ def main(argv=None):
                         help="Dataset root (default ./dataset).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device of the forward (default cuda).")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    """Evaluate ``--run``; returns the scores written to
+    ``results_<split>.json``."""
+    args = build_parser().parse_args(argv)
 
     set_root_logger(Path.cwd() / "logs" / "test.log")
     return Tester(args).run()

@@ -11,6 +11,12 @@
   count), stepped once per optimizer step.
 - ``clip_grad_norm``: optax's ``clip_by_global_norm`` (scale by
   ``max_norm / norm`` when ``norm >= max_norm``), on the device, no sync.
+- ``UpdateRule``: one call's update after its backward. With
+  ``trainer.grad_accum_steps`` k > 1 it is ``optax.MultiSteps`` around
+  ``chain(clip, adamw groups)``: the calls' gradients are averaged
+  (Welford: ``acc += (g - acc) / (n + 1)``), and every k-th call the clip,
+  AdamW and the schedule step once on the mean. The partial mean is not
+  checkpointed.
 """
 
 from __future__ import annotations
@@ -28,10 +34,6 @@ def lr_factor(step: int, config, steps_per_epoch: int) -> float:
 def make_optimizer(model: torch.nn.Module, config, steps_per_epoch=1):
     """(AdamW, LambdaLR) for ``model`` under ``config['trainer']``."""
     tcfg = config["trainer"]
-    if int(tcfg.get("grad_accum_steps", 1)) > 1:
-        raise NotImplementedError(
-            "trainer.grad_accum_steps > 1 is not ported yet: ROADMAP "
-            "Queue 1, item 7 (config keys no shipped config sets)")
     backbone, rest = [], []
     for name, p in model.named_parameters():
         if p.requires_grad:
@@ -62,3 +64,47 @@ def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
 def current_lrs(optimizer) -> dict:
     """The groups' learning rates for the next step, for logging."""
     return {g["name"]: float(g["lr"]) for g in optimizer.param_groups}
+
+
+class UpdateRule:
+    """Clip + AdamW + schedule after a call's backward, once every
+    ``accum`` calls on the calls' mean gradient."""
+
+    def __init__(self, optimizer, scheduler, params, clip=-1.0, accum=1):
+        self.optimizer, self.scheduler = optimizer, scheduler
+        self.params = list(params)
+        self.clip = float(clip)
+        self.accum = int(accum)
+        self.mini_step = 0
+        self._acc = None
+
+    @torch.no_grad()
+    def _accumulate(self) -> bool:
+        """Fold this call's gradients into the mean; on the k-th call put
+        the mean into ``.grad`` and return True."""
+        if self._acc is None:
+            self._acc = [torch.zeros_like(p) for p in self.params]
+        n = self.mini_step
+        for p, acc in zip(self.params, self._acc):
+            if p.grad is not None:
+                acc.add_((p.grad - acc) / (n + 1))
+            else:
+                acc.sub_(acc / (n + 1))
+        self.mini_step = (n + 1) % self.accum
+        if self.mini_step:
+            return False
+        for p, acc in zip(self.params, self._acc):
+            p.grad = acc.clone()
+            acc.zero_()
+        return True
+
+    def __call__(self) -> bool:
+        """Apply the update if this call completes one; returns whether it
+        did."""
+        if self.accum > 1 and not self._accumulate():
+            return False
+        if self.clip > 0:
+            clip_grad_norm(self.params, self.clip)
+        self.optimizer.step()
+        self.scheduler.step()
+        return True

@@ -9,7 +9,9 @@
   batch), else the intensity window (when the config has
   ``foreground_voxel_statistics``); then targets, forward
   (dropout masks from the step's generator), criterion, ``total_loss``,
-  backward, global-norm clipping, then AdamW and the schedule. With
+  backward, global-norm clipping, then AdamW and the schedule (with
+  ``trainer.grad_accum_steps`` k, on the mean gradient of k calls, every
+  k-th call: ``train_state.UpdateRule``). With
   ``trainer.nan_guard: skip`` a non-finite loss drops the update, the
   moments and the step count (one host sync per step); ``error`` raises at
   the end of the epoch. Plain batching: ``trainer.microbatch``,
@@ -17,7 +19,9 @@
   nothing (on the JAX side they are TPU dispatch and layout choices whose
   equality with plain batching its tests pin).
 - ``make_eval_step``: the same up to the losses, without gradients; returns
-  losses, predictions and targets.
+  losses, predictions and targets. Validation decodes RetinaNet's
+  predictions on the card (``models/retina.retina_inference`` with its
+  defaults, as the JAX trainer), the others' on the host.
 - ``Trainer``: with ``use_augmentation: true, on_device: false`` the train
   loader is wrapped in ``HostAugmentingLoader`` (``trainer.num_workers``
   threads, 8 if 0, with as many cases in flight beyond the batch handed
@@ -47,16 +51,17 @@ from transoar_tpu_torch.data.transforms import (HostAugmentingLoader,
                                                  eval_transform)
 from transoar_tpu_torch.eval.evaluator import build_evaluator
 from transoar_tpu_torch.models.criterion import build_criterion, total_loss
+from transoar_tpu_torch.models.retina import retina_inference
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training.inference import inference
-from transoar_tpu_torch.training.train_state import (clip_grad_norm,
+from transoar_tpu_torch.training.train_state import (UpdateRule,
                                                      current_lrs,
                                                      make_optimizer)
 from transoar_tpu_torch.utils.boxes import segmentation2bbox
 
 logger = logging.getLogger(__name__)
 
-_PRED_KEYS = ("pred_logits", "pred_boxes")
+_PRED_KEYS = ("pred_logits", "pred_boxes", "anchor_logits", "anchor_deltas")
 
 
 def derive_targets(seg, num_classes, bbox_padding=1):
@@ -96,9 +101,11 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
         raise ValueError("augmentation.on_device: true draws from the "
                          "step's generator: pass one")
     aug_cfg = config.get("augmentation", {})
-    clip = float(tcfg.get("clip_max_norm", -1))
     nan_guard = tcfg.get("nan_guard", "off")
-    params = [p for p in model.parameters() if p.requires_grad]
+    update = UpdateRule(optimizer, scheduler,
+                        [p for p in model.parameters() if p.requires_grad],
+                        clip=tcfg.get("clip_max_norm", -1),
+                        accum=tcfg.get("grad_accum_steps", 1))
 
     def train_step(batch):
         if mode == "device":
@@ -113,11 +120,8 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
         loss = total_loss(losses, coefs)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if clip > 0:
-            clip_grad_norm(params, clip)
         if nan_guard != "skip" or torch.isfinite(loss).item():
-            optimizer.step()
-            scheduler.step()
+            update()
         losses["total"] = loss
         return {k: v.detach() for k, v in losses.items()}
 
@@ -138,7 +142,7 @@ def make_eval_step(model, criterion, config):
         out = model(image)
         losses = criterion(out, targets, model.anchors)
         losses["total"] = total_loss(losses, coefs)
-        return losses, {k: out[k] for k in _PRED_KEYS}, targets
+        return losses, {k: out[k] for k in _PRED_KEYS if k in out}, targets
 
     return eval_step
 
@@ -327,8 +331,13 @@ class Trainer:
             for key, val in losses.items():
                 agg[key] = agg.get(key, 0.0) + float(val)
             count += 1
-            preds = {k: v.cpu().numpy() for k, v in preds.items()}
-            boxes, classes, scores = inference(preds, num_organs)
+            if "anchor_logits" in preds:  # RetinaNet: decoded on the card
+                boxes, classes, scores = retina_inference(
+                    preds, self._model.anchors, num_organs)
+            else:
+                boxes, classes, scores = inference(
+                    {k: v.cpu().numpy() for k, v in preds.items()},
+                    num_organs)
             tgt_boxes = targets["boxes"].cpu().numpy()
             tgt_present = targets["present"].cpu().numpy()
             gt_boxes = [tb[tp] for tb, tp in zip(tgt_boxes, tgt_present)]

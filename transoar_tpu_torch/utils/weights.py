@@ -1,15 +1,18 @@
 """Weight bridge: the JAX package's flax parameters -> the port's state_dict.
 
 ``state_dict_from_jax(params, config)`` takes the flax parameter tree of a
-``transoar_tpu`` TransoarNet (AttnFPN with CNN or Swin encoder stages, the
-deformable refine and the seg head; the Focused Decoder, DETR or
-Deformable-DETR neck), as nested dicts of numpy arrays, and returns the
-port's ``state_dict``. The port names its parameters as the reference torch
+``transoar_tpu`` TransoarNet (AttnFPN with CNN or Swin encoder stages,
+either patch merging, the deformable refine and the seg head; the Focused
+Decoder, with or without its own ``q_proj``, DETR or Deformable-DETR neck;
+the sine or learned position encoding) or RetinaNet (the same backbone, the
+shared ``cls_tower`` / ``reg_tower`` and the seg head), as nested dicts of
+numpy arrays, and returns the port's ``state_dict``. The port names its parameters as the reference torch
 model does, so for the reference's modules this is the inverse of
 ``transoar_tpu.utils.torch_import.map_reference_state_dict``: transposes of
 conv and dense kernels, and the ``[C, H, hd]`` attention kernels flattened
-back to ``[C, C]``. The DETR necks, which the reference checkout lacks, use
-the port's own names (``models/detr.py``). No jax is needed; the
+back to ``[C, C]``. The DETR necks and RetinaNet, which the reference
+checkout lacks, use the port's own names (``models/detr.py``,
+``models/retina.py``). No jax is needed; the
 per-module converters are used by the parity tests too.
 """
 
@@ -82,8 +85,29 @@ def swin_block(p):
 
 
 def patch_merging(p):
+    """flax PatchMerging -> ``norm``, ``reduction``; ConvPatchMerging
+    (``swin.conv_merging``) -> ``conv`` (2x2x2, no bias), ``norm``."""
+    if "FastConv3D_0" in p:
+        return {"conv.weight": conv_weight(p["FastConv3D_0"]["kernel"]),
+                **_prefixed("norm", norm(p["InstanceNorm_0"]))}
     return {**_prefixed("norm", norm(p["LayerNorm_0"])),
             "reduction.weight": linear_weight(p["Dense_0"]["kernel"])}
+
+
+def learned_pos_enc(p):
+    """flax PositionEmbeddingLearned3D -> the reference's ``row_embed``
+    (axis 0), ``col_embed`` (axis 1) and ``depth_embed`` tables, the names
+    ``torch_import`` reads."""
+    return {"row_embed.weight": p["embed_0"],
+            "col_embed.weight": p["embed_1"],
+            "depth_embed.weight": p["embed_2"]}
+
+
+def _pos_enc(p):
+    """The learned position encoding a flax module holds, if any, under
+    ``_pos_enc``."""
+    pe = p.get("PositionEmbeddingLearned3D_0")
+    return {} if pe is None else _prefixed("_pos_enc", learned_pos_enc(pe))
 
 
 def swin_stage(p):
@@ -116,7 +140,11 @@ def self_attention(p):
 
 
 def focused_attention(p):
-    return {"k_proj.weight": linear_weight(p["k_proj"]["kernel"]),
+    """flax FocusedAttn -> ``k_proj``, ``v_proj``, ``proj`` and, with
+    ``share_qk_proj: false``, ``q_proj``."""
+    q = ({"q_proj.weight": linear_weight(p["q_proj"]["kernel"])}
+         if "q_proj" in p else {})
+    return {**q, "k_proj.weight": linear_weight(p["k_proj"]["kernel"]),
             "v_proj.weight": linear_weight(p["v_proj"]["kernel"]),
             **_prefixed("proj", dense(p["proj"]))}
 
@@ -143,7 +171,7 @@ def refine(p):
     """flax DecoderDefAttnBlock -> ``level_embed``,
     ``refine_def_attn.layers.{i}.*`` (the names
     ``torch_import._map_refine`` reads)."""
-    sd = {"level_embed": p["level_embed"]}
+    sd = {"level_embed": p["level_embed"], **_pos_enc(p)}
     for i in _stage_numbers(p, "layer"):
         lay = p[f"layer{i}"]
         sd.update(_prefixed(f"refine_def_attn.layers.{i}", {
@@ -169,11 +197,12 @@ def _stage_numbers(tree, prefix):
     return sorted(int(k[len(prefix):]) for k in tree if k.startswith(prefix))
 
 
-def state_dict_from_jax(params, config) -> dict:
-    """flax params (``{"params": ...}`` or the inner tree) -> port
-    ``state_dict`` of f32 CPU tensors."""
-    if set(params) == {"params"}:
-        params = params["params"]
+def conv_tower(p):
+    """flax ConvTower -> ``conv{i}``, ``out``."""
+    return {f"{name}.{k}": v for name in p for k, v in conv(p[name]).items()}
+
+
+def _backbone(params, config):
     sd = {}
     enc = params["backbone"]["encoder"]
     for i in range(config["backbone"]["num_stages"]):
@@ -195,6 +224,21 @@ def state_dict_from_jax(params, config) -> dict:
     if "refine" in dec:
         sd.update(_prefixed("_backbone._decoder._refine",
                             refine(dec["refine"])))
+    return sd
+
+
+def state_dict_from_jax(params, config) -> dict:
+    """flax params (``{"params": ...}`` or the inner tree) of a TransoarNet
+    or a RetinaNet -> port ``state_dict`` of f32 CPU tensors."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd = _backbone(params, config)
+    if "seg_head" in params:
+        sd.update(_prefixed("_seg_head", conv(params["seg_head"])))
+    if "cls_tower" in params:  # RetinaNet
+        for name in ("cls_tower", "reg_tower"):
+            sd.update(_prefixed(f"_{name}", conv_tower(params[name])))
+        return to_torch(sd)
     neck = params["neck"]
     focused = config["neck"].get("name", "foc_attn") == "foc_attn"
     for i in range(config["neck"]["dec_layers"]):
@@ -204,8 +248,7 @@ def state_dict_from_jax(params, config) -> dict:
                                  detr_layer(neck[f"layer{i}"])))
     if "ref_points" in neck:
         sd.update(_prefixed("_neck.ref_points", dense(neck["ref_points"])))
-    if "seg_head" in params:
-        sd.update(_prefixed("_seg_head", conv(params["seg_head"])))
+    sd.update(_pos_enc(params))
     sd.update(_prefixed("_cls_head", dense(params["cls_head"])))
     sd.update(_prefixed("_reg_head", mlp(params["reg_head"])))
     sd["_query_embed.weight"] = params["query_embed"]
