@@ -137,7 +137,24 @@ each printing a line; any failure exits non-zero before the result lines:
    above the IoU threshold); before them the decode on the card against
    the CPU on a seeded input without ties (1e-5);
    then the test CLI (``test.Tester`` --val, the family's serving path) on
-   each run, with each case's forward and decode CUDA-event ms.
+   each run, with each case's forward and decode CUDA-event ms;
+19. parallel: the flagship's train step at full width (256x256x128, batch
+   2, f32 with cuDNN's default TF32 convs, eval(): no dropout) for 3
+   steps from the seeded weights on 3 batches of phase 10's cases, in
+   processes started with
+   torchrun's environment: the plain one-process step, then (a) one rank
+   over NCCL under DDP, FSDP2 and the tp code path (the neck's Megatron
+   modules over a one-rank group), (b) two ranks: dp 1 + 1 and tp 2 (two
+   processes sharing the card over gloo, which lacks FSDP2's
+   reduce-scatter for CUDA tensors; with two cards NCCL, FSDP2 too), each
+   against the plain step:
+   every loss within rtol 1e-4, the first step's gradients within rel-L2
+   1e-3 (phase 8's tolerances), 12 / 3 / 6 band-conv launches on every
+   rank, the step event ms and peak memory of every rank; (c) ``train.main``
+   under ``torch.distributed.run`` (one process a card) on foc_dec_amos as
+   shipped with ``parallel.fsdp: true`` for one epoch of phase 10's
+   dataset, its launches on every rank and a checkpoint in the plain
+   layout, then ``test.main --val`` on it in this process.
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; every serving, training and test path also requires
@@ -145,6 +162,10 @@ every launch of the band conv's forward kernel (forward and dx), and every
 training path every launch of its dw kernel, to have taken the wide or the
 fold variant, never the generic one, and every launch of the window
 kernels to have taken fwd_wg / bwd_wg (none on the flagship's paths).
+Phase 19's paths run in its ranks' processes, which set their counts to 0
+and report them (its f32 steps take the band conv's f32 kernels; the
+variants of the other processes are not read); ``parallel_fsdp_test``
+runs here and is checked as the other test paths.
 Then a line with each model's loop rates in every augmentation setting
 side by side and the host's core count, one with phase 16's and 18's configs
 side by side, one JSON line of per-kernel results (each kernel's launches on
@@ -1815,6 +1836,344 @@ def phase_retina(root, dataset):
     return counts_by_path, results
 
 
+# phase 19: the flagship's train step under the multi-GPU wrappers, each
+# run PARALLEL_STEPS steps from the plain step's weights and batches
+PARALLEL_STEPS = 3
+PARALLEL_WORLD1 = ("ddp", "fsdp", "tp")
+# two ranks on one card talk over gloo (NCCL refuses two ranks on one
+# device), which has no reduce-scatter for CUDA tensors (FSDP2's): there
+# the fsdp check stays on the CPU (tests/test_torch_parallel.py)
+PARALLEL_TWO_ONE_CARD = ("dp", "tp")
+PARALLEL_TWO_CARDS = ("dp", "tp", "fsdp")
+# the tiny train steps' tolerances (PERF.md section 2): loss, gradients
+PARALLEL_LOSS_RTOL, PARALLEL_GRAD_REL = 1e-4, 1e-3
+
+
+def _mode_layout(mode, world):
+    """(dp, tp, fsdp, tp_always) of a phase-19 mode: ``ddp`` / ``dp``
+    data parallel under DDP, ``fsdp`` under FSDP2, ``tp`` the neck over
+    every rank (at one rank over a one-rank group)."""
+    if mode == "tp":
+        return 1, world, False, world == 1
+    return world, 1, mode == "fsdp", False
+
+
+def _full_grads(model, layout):
+    """Every parameter's whole gradient under its reference name, on the
+    card (a collective of every rank under a layout)."""
+    from transoar_tpu_torch.parallel import fsdp as fsdp_lib
+    from transoar_tpu_torch.parallel import tp as tp_lib
+
+    grads = {n.removeprefix("module."): p.grad
+             for n, p in model.named_parameters()}
+    if layout is None:
+        return grads
+    grads = {n: g.full_tensor() if hasattr(g, "full_tensor") else g
+             for n, g in grads.items()}
+    plan = getattr(fsdp_lib.unwrap(model), "tp_plan", {})
+    return tp_lib.gather_state(grads, plan, layout.tp_group, layout.tp)
+
+
+def _parallel_steps(cfg, model, layout, batches, device):
+    """PARALLEL_STEPS train steps (model in eval(): no dropout) on this
+    rank's rows of each global batch, every count at 0 before: (losses,
+    step event ms, the first step's whole gradients, counts, peak)."""
+    from transoar_tpu_torch.models.criterion import build_criterion
+    from transoar_tpu_torch.parallel.mesh import local_batch_rows
+    from transoar_tpu_torch.training.train_state import make_optimizer
+    from transoar_tpu_torch.training.trainer import make_train_step
+
+    model.eval()
+    optimizer, scheduler = make_optimizer(model, cfg, 1)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           cfg, None, layout)
+    rows = local_batch_rows(layout, BATCH)
+    rows = slice(None) if rows is None else rows
+    on_card = [{k: torch.from_numpy(batches[k][i][rows]).to(device)
+                for k in ("image", "seg")} for i in range(PARALLEL_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    losses, marks, grads = [], [], None
+    for i, batch in enumerate(on_card):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        losses.append(step(batch)["total"])
+        b.record()
+        marks.append((a, b))
+        if i == 0:
+            grads = _full_grads(model, layout)
+    torch.cuda.synchronize()
+    return ([float(v) for v in losses], [a.elapsed_time(b) for a, b in marks],
+            grads, _counts(), torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _grad_rel_l2(grads, ref):
+    """The largest per-tensor rel-L2 of ``grads`` against ``ref`` over the
+    tensors above 1e-5 of ref's global norm."""
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [g.float().norm() for g in ref.values()])))
+    return max(float((grads[n].float() - g.float()).norm() / g.float().norm())
+               for n, g in ref.items() if g.float().norm() > 1e-5 * norm)
+
+
+def _parallel_rank(spec_path, out):
+    """One rank of phase 19 (started by ``phase_parallel`` with torchrun's
+    environment): on rank 0 the plain step, then on every rank each mode's
+    steps from the same seeded weights; rank 0 writes the comparison,
+    every rank its counts and peak memory."""
+    import torch.distributed as dist
+
+    from transoar_tpu_torch.models.transoarnet import build_model
+    from transoar_tpu_torch.parallel.fsdp import parallelize
+    from transoar_tpu_torch.parallel.mesh import (Layout, init_distributed,
+                                                  make_mesh)
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(out)
+    device = init_distributed(spec["device"], spec["backend"])
+    cfg = spec["config"]
+    batches = dict(np.load(out.parent / "batches.npz"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def model():
+        return build_model(cfg, device=device, generator=torch.Generator()
+                           .manual_seed(int(cfg["seed"])))
+
+    results, mine = {}, {}
+    try:
+        if rank == 0:
+            losses, ms, ref, counts, peak = _parallel_steps(
+                cfg, model(), None, batches, device)
+            results["plain"] = {"loss": losses, "step_event_ms": ms,
+                                "peak_gib": peak, "launches": counts}
+        dist.barrier()
+        for mode in spec["modes"]:
+            dp, tp, fsdp, always = _mode_layout(mode, world)
+            layout = Layout(make_mesh(dp, 1, tp, "cuda"), fsdp=fsdp)
+            wrapped = parallelize(model(), layout, device, tp_always=always)
+            losses, ms, grads, counts, peak = _parallel_steps(
+                cfg, wrapped, layout, batches, device)
+            mine[mode] = {"launches": counts, "peak_gib": peak}
+            if rank == 0:
+                results[mode] = {"loss": losses, "step_event_ms": ms,
+                                 "grad_rel_l2_max": _grad_rel_l2(grads, ref)}
+            del wrapped, grads
+            dist.barrier()
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(mine))
+        if rank == 0:
+            (out / "results.json").write_text(json.dumps(results))
+        dist.destroy_process_group()
+
+
+def _train_cli_rank(out, argv):
+    """One rank of ``train.main`` under torchrun (phase 19), every count at
+    0 before; writes its counts, peak memory and train history."""
+    from transoar_tpu_torch import train
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    trainer = train.main(argv)
+    record = {"launches": _counts(),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "train_total": [h["train"]["total"] for h in trainer.history
+                              if "train" in h],
+              "step_event_ms": trainer.clock.ms}
+    Path(out, f"cli.rank{os.environ['RANK']}.json").write_text(
+        json.dumps(record))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(args, world, cwd, timeout=600):
+    """Start ``world`` processes of ``args`` with torchrun's environment
+    (``world`` None: one process of ``args`` that sets it up itself) and
+    wait for them; fails (after stopping them all) unless each exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    if world is None:
+        envs = [env]
+    else:
+        env.update(WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(_free_port()))
+        envs = [dict(env, RANK=str(r), LOCAL_RANK=str(r))
+                for r in range(world)]
+    procs = [subprocess.Popen(args, cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=e)
+             for e in envs]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [f"rank {r} exit {p.returncode}: {log[-3000:]}"
+           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    if bad:
+        fail("; ".join(bad))
+
+
+def _parallel_run(root, name, cfg, world, device, backend, modes):
+    """Phase 19's ranks over ``modes``; checks each against the plain
+    step and prints a line each; returns {path: rank 0's counts}."""
+    out = Path(root) / "parallel" / name
+    out.mkdir(parents=True)
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"config": cfg, "device": device,
+                                "backend": backend, "modes": modes}))
+    t0 = time.perf_counter()
+    _run_ranks([sys.executable, str(Path(__file__).resolve()),
+                "--parallel-rank", str(spec), str(out)], world,
+               Path(__file__).parent)
+    secs = time.perf_counter() - t0
+    results = json.loads((out / "results.json").read_text())
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)]
+    plain = results["plain"]
+    want = _want_training(PARALLEL_STEPS, 0, 0)
+    counts_by_path, failures = {}, []
+    print(f"parallel {name}: plain step (one process, no wrapper) loss "
+          f"{plain['loss']}, step event ms {plain['step_event_ms']}, peak "
+          f"{plain['peak_gib']:.2f} GiB; {world} rank(s) over {backend} on "
+          f"{device}, {secs:.1f} s", flush=True)
+    for mode in modes:
+        got = results[mode]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                   plain["loss"])]
+        for r, facts in enumerate(ranks):
+            launched = {k: v for k, v in facts[mode]["launches"].items()
+                        if v}
+            if launched != want:
+                failures.append(f"parallel {name} {mode} rank {r} launched "
+                                f"{launched}, want {want}")
+        if max(rel) > PARALLEL_LOSS_RTOL or \
+                got["grad_rel_l2_max"] > PARALLEL_GRAD_REL:
+            failures.append(
+                f"parallel {name} {mode}: loss {got['loss']} vs plain "
+                f"{plain['loss']} (rel {max(rel):.2e}), gradient rel-L2 "
+                f"{got['grad_rel_l2_max']:.2e}")
+        path = f"parallel_{name}_{mode}"
+        counts_by_path[path] = ranks[0][mode]["launches"]
+        print(f"{path}: loss {got['loss']} (largest rel. difference to "
+              f"plain {max(rel):.2e}), first step's gradient rel-L2 max "
+              f"{got['grad_rel_l2_max']:.2e}, step event ms "
+              f"{got['step_event_ms']} (plain {plain['step_event_ms']}), "
+              f"peak GiB per rank "
+              f"{[round(f[mode]['peak_gib'], 2) for f in ranks]}, band conv "
+              f"launches per rank {want}", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return counts_by_path
+
+
+def phase_parallel(root, dataset):
+    """Multi-GPU training (``transoar_tpu_torch/parallel``) on the
+    flagship at full width (256x256x128, batch 2, f32, seeded weights,
+    PARALLEL_STEPS batches of phase 10's cases): (a) one rank over NCCL
+    under DDP, FSDP2 and the tp code path; (b) two ranks (two cards over
+    NCCL, else two processes sharing the card over gloo): dp 1 + 1 and tp
+    2 (and FSDP2 on two cards), each against the plain one-process step;
+    (c) ``train.main`` under torchrun with ``parallel.fsdp: true`` for one
+    epoch of the phase-10 dataset as shipped, then ``test.main --val`` on
+    its checkpoint in this process. Returns {path: counts}."""
+    from transoar_tpu_torch.data.dataset import TransoarDataset
+    from transoar_tpu_torch.presets import flagship_config
+    from transoar_tpu_torch.utils.io import load_json
+
+    cfg = flagship_config(batch_size=BATCH)
+    cfg.update(load_json(Path(root) / "dataset" / dataset / "data_info.json"))
+    cfg["dataset"] = dataset
+    cfg["augmentation"]["use_augmentation"] = False  # the step windows
+    # f32, as phase 8's small steps: in bf16 a rounding moved by a split
+    # batch or a summed partial product grows over the steps past these
+    # tolerances (a 1e-3 to 8e-3 loss difference by the third step). The
+    # ranks keep cuDNN's default TF32 convs (without them a full-width f32
+    # step takes 3.5 s and each process's first 16-29 s)
+    cfg["trainer"]["precision"] = "float32"
+    data = TransoarDataset(cfg, "train", data_dir=Path(root) / "dataset")
+    cases = [data[i % len(data)] for i in range(PARALLEL_STEPS * BATCH)]
+    (Path(root) / "parallel").mkdir()
+    np.savez(Path(root) / "parallel" / "batches.npz",
+             image=np.stack([c[0] for c in cases]).reshape(
+                 PARALLEL_STEPS, BATCH, *cases[0][0].shape),
+             seg=np.stack([c[1] for c in cases]).reshape(
+                 PARALLEL_STEPS, BATCH, *cases[0][1].shape))
+    cfg = json.loads(json.dumps(cfg, default=lambda o: o.tolist()))
+    counts = _parallel_run(root, "world1", cfg, 1, "cuda", "nccl",
+                           PARALLEL_WORLD1)
+    if torch.cuda.device_count() >= 2:
+        counts.update(_parallel_run(root, "2ranks", cfg, 2, "cuda", "nccl",
+                                    PARALLEL_TWO_CARDS))
+    else:
+        counts.update(_parallel_run(root, "2ranks", cfg, 2, "cuda:0", "gloo",
+                                    PARALLEL_TWO_ONE_CARD))
+    counts.update(_parallel_train_cli(root, dataset))
+    return counts
+
+
+def _parallel_train_cli(root, dataset):
+    """``python -m torch.distributed.run -m transoar_tpu_torch.train`` as
+    a user starts it (here through ``_train_cli_rank`` to count the
+    kernels), foc_dec_amos as shipped with ``parallel.fsdp: true``, one
+    epoch; then the test CLI on its checkpoint."""
+    import yaml
+
+    from transoar_tpu_torch.presets import flagship_config
+
+    nproc = 2 if torch.cuda.device_count() >= 2 else 1
+    name = "foc_dec_amos_fsdp"
+    cfg = flagship_config(batch_size=BATCH)
+    cfg["parallel"]["fsdp"] = True
+    cfg.update(experiment_name=name, dataset=dataset, debug_mode=False)
+    cfg["trainer"].update(epochs=1, val_interval=1)
+    for key in ("bbox_properties", "labels", "foreground_voxel_statistics"):
+        cfg.pop(key, None)  # the dataset's data_info.json provides them
+    path = Path(root) / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(json.loads(json.dumps(
+        cfg, default=lambda o: o.tolist()))))
+    out = Path(root) / "parallel" / "cli"
+    out.mkdir()
+    t0 = time.perf_counter()
+    _run_ranks([sys.executable, "-m", "torch.distributed.run",
+                f"--nproc_per_node={nproc}", f"--master_port={_free_port()}",
+                str(Path(__file__).resolve()), "--train-cli-rank", str(out),
+                "--config", str(path), "--data_dir",
+                str(Path(root) / "dataset"), "--device", "cuda"], None, root)
+    secs = time.perf_counter() - t0
+    ranks = [json.loads((out / f"cli.rank{r}.json").read_text())
+             for r in range(nproc)]
+    steps = TRAIN_CASES // BATCH
+    want = _want_training(steps, 2 * (VAL_CASES // BATCH), 0)
+    for r, record in enumerate(ranks):
+        launched = {k: v for k, v in record["launches"].items() if v}
+        if launched != want or not np.isfinite(record["train_total"]).all():
+            fail(f"parallel train CLI rank {r}: launched {launched}, want "
+                 f"{want}; losses {record['train_total']}")
+    saved = torch.load(Path(root) / "runs" / name / "model_last.pt",
+                       map_location="cpu", weights_only=True)
+    if any(k.startswith("module.") or type(v) is not torch.Tensor
+           for k, v in saved["model"].items()):
+        fail("parallel train CLI: the checkpoint is not the plain layout")
+    print(f"parallel_train_cli: torchrun --nproc_per_node={nproc} -m "
+          f"transoar_tpu_torch.train, foc_dec_amos as shipped with "
+          f"parallel.fsdp: true, {steps} steps + 2 validations in "
+          f"{secs:.1f} s; losses {ranks[0]['train_total']}, step event ms "
+          f"{ranks[0]['step_event_ms']}, peak GiB per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]}; launches per rank "
+          f"{want}", flush=True)
+    counts = {"parallel_train_cli": ranks[0]["launches"]}
+    counts["parallel_fsdp_test"] = _test_run(root, "parallel_fsdp_test",
+                                             name, VAL_CASES, 0)
+    return counts
+
+
 def _entry(name, replaces, launches, rows, path_rows,
            source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
@@ -1878,6 +2237,7 @@ def main():
             root, datasets["foc_dec_amos"])
         paths.update(retina_counts)
         family_results.update(retina_results)
+        paths.update(phase_parallel(root, datasets["foc_dec_amos"]))
     _loop_summary(loop_results)
     _family_summary(family_results)
     src = "transoar_tpu/ops/pallas/packed_conv.py"
@@ -1927,4 +2287,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:  # phase 19's ranks
+        _parallel_rank(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--train-cli-rank"]:
+        _train_cli_rank(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -2,8 +2,9 @@
 originals, on the same inputs: NIfTI I/O, config I/O, anchors (the
 focused neck's and RetinaNet's), presets,
 the synthetic dataset, the loader, the evaluator, the Swin window
-helpers, the host augmentation and its loader, the offline preprocessor
-and the visualization writers. Every copy must agree exactly (same numpy
+helpers, the host augmentation and its loader, the loader's per-process
+rows and ``local_batch_rows``, the offline preprocessor and the
+visualization writers. Every copy must agree exactly (same numpy
 code)."""
 
 import gzip
@@ -184,6 +185,54 @@ def test_synthetic_dataset_and_loader_match(tmp_path):
                 assert x.keys() == y.keys()
                 for key in x:
                     np.testing.assert_array_equal(x[key], y[key])
+
+
+def test_loader_rows_match(tmp_path):
+    """``Loader(rows=...)``, each process's rows of every global batch,
+    against the JAX package's over two shuffled epochs, for each dp
+    rank's rows."""
+    synthetic.generate_dataset(tmp_path, name="syn", shape=(16, 12, 8),
+                               num_classes=3, num_train=9, num_val=0,
+                               num_test=0, seed=2)
+    cfg = tiny_config(num_organs=3)
+    cfg["dataset"] = "syn"
+    cfg["trainer"].update(batch_size=4, num_workers=2, shuffle=True)
+    for rows in ([0, 1], [2, 3], [1, 3]):
+        mine = dataset.get_loader(cfg, "train", data_dir=tmp_path, rows=rows)
+        theirs = jdataset.get_loader(cfg, "train", data_dir=tmp_path,
+                                     rows=np.array(rows))
+        assert type(mine).__name__ == type(theirs).__name__ == "Loader"
+        assert len(mine) == len(theirs) == 2
+        for _ in range(2):
+            pairs = list(zip(mine, theirs))
+            assert len(pairs) == 2
+            for x, y in pairs:
+                assert x.keys() == y.keys()
+                for key in x:
+                    np.testing.assert_array_equal(x[key], y[key])
+
+
+@pytest.mark.parametrize("dp,tp,batch", [(2, 1, 4), (4, 1, 8), (2, 2, 2),
+                                         (1, 2, 2), (2, 4, 6)])
+def test_local_batch_rows_matches(dp, tp, batch):
+    """The port's ``local_batch_rows`` against the index map the JAX
+    function reads (``NamedSharding(mesh, P("dp"))`` over the dp x 1 x tp
+    CPU mesh), one device a process: rank = dp index * tp + tp index, the
+    row-major order of both meshes."""
+    import jax
+    from types import SimpleNamespace
+
+    from jax.sharding import NamedSharding, PartitionSpec
+    from transoar_tpu.parallel import mesh as jmesh
+    from transoar_tpu_torch.parallel import mesh
+
+    jm = jmesh.make_mesh(dp=dp, tp=tp, devices=jax.devices()[:dp * tp])
+    index = NamedSharding(jm, PartitionSpec("dp")).devices_indices_map(
+        (batch,))
+    for rank, dev in enumerate(jm.devices.reshape(-1)):
+        want = list(range(*index[dev][0].indices(batch)))
+        layout = SimpleNamespace(dp=dp, dp_rank=rank // tp, world=dp * tp)
+        assert mesh.local_batch_rows(layout, batch).tolist() == want
 
 
 @pytest.mark.parametrize("seed,shape", [(0, (64, 48, 32)), (1, (40, 40, 24)),

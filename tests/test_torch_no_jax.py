@@ -1,8 +1,9 @@
 """The port never imports jax, flax or the JAX package: every module of
 transoar_tpu_torch (its CLIs ``train``, ``test``, ``predict``,
 ``prepare_dataset_amos``, ``prepare_dataset_visceral`` and
-``import_checkpoint`` included), ``chip_smoke.py`` and the port's scripts
-import in a fresh interpreter where all three are blocked, and no import
+``import_checkpoint`` included, and ``parallel/``), ``chip_smoke.py``, the
+port's scripts, the multi-process test worker and the CUDA-only parallel
+tests import in a fresh interpreter where all three are blocked, and no import
 statement anywhere in their sources (function bodies included) names
 ``transoar_tpu``."""
 
@@ -13,7 +14,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ["chip_smoke.py", "scripts/profile_torch_serving.py",
-           "scripts/probe_window_kernels.py"]
+           "scripts/probe_window_kernels.py",
+           "tests/torch_parallel_worker.py",
+           "tests/test_torch_parallel_cuda.py"]
 
 SCRIPT = """
 import importlib, importlib.util, pkgutil, sys
@@ -41,7 +44,10 @@ for name in ("transoar_tpu_torch.predict", "transoar_tpu_torch.train",
              "transoar_tpu_torch.ops.kernels.conv2d",
              "transoar_tpu_torch.models.swin",
              "transoar_tpu_torch.models.retina",
-             "transoar_tpu_torch.ops.nms"):
+             "transoar_tpu_torch.ops.nms",
+             "transoar_tpu_torch.parallel.mesh",
+             "transoar_tpu_torch.parallel.tp",
+             "transoar_tpu_torch.parallel.fsdp"):
     assert name in names, name
 print(len(names))
 """ % SCRIPTS

@@ -64,14 +64,21 @@ class TransoarDataset:
 class Loader:
     """Epoch iterator producing fixed-shape numpy batches: the last partial
     batch is dropped, as the reference (dataloader.py:22); shuffling is
-    seeded per epoch for reproducibility."""
+    seeded per epoch for reproducibility.
 
-    def __init__(self, dataset, batch_size, shuffle=False, seed=0):
+    ``rows`` (multi-GPU input sharding): the positions within each global
+    batch this process loads (``parallel.mesh.local_batch_rows``). The
+    shuffle is seeded alike on every process, so the ranks' rows together
+    are the one-process epoch, each rank reading only its own."""
+
+    def __init__(self, dataset, batch_size, shuffle=False, seed=0,
+                 rows=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self._epoch = 0
+        self.rows = None if rows is None else np.asarray(rows, dtype=np.int64)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -86,6 +93,8 @@ class Loader:
 
         for start in range(0, n - n % self.batch_size, self.batch_size):
             idx = order[start:start + self.batch_size]
+            if self.rows is not None:
+                idx = idx[self.rows]
             images, labels = zip(*(self.dataset[int(i)] for i in idx))
             yield {
                 "image": np.stack(images),
@@ -94,24 +103,27 @@ class Loader:
             }
 
 
-def get_loader(config, split, data_dir=None, batch_size=None):
+def get_loader(config, split, data_dir=None, batch_size=None, rows=None):
     """Reference-compatible entry point: a loader over
     ``<data_dir or ./dataset>/<config['dataset']>/<split>`` at the config's
     batch size (or ``batch_size``), shuffled and seeded per epoch from the
     config's seed for the train split. With ``trainer.num_workers > 0`` it
     is the native C++ loader with that many reader threads (built with
-    ``g++`` at first use; a failed build raises), else the Python loader."""
+    ``g++`` at first use; a failed build raises), else the Python loader.
+    ``rows`` (this process's rows of each global batch) forces the Python
+    loader, as in the JAX package: the native loader streams whole
+    batches."""
     tcfg = config["trainer"]
     batch_size = batch_size or tcfg["batch_size"]
     shuffle = split == "train" and tcfg.get("shuffle", True)
     dataset = TransoarDataset(config, split, data_dir=data_dir)
     seed = config.get("seed", 0)
     num_workers = int(tcfg.get("num_workers", 0))
-    if num_workers > 0:
+    if num_workers > 0 and rows is None:
         from transoar_tpu_torch.native.native_loader import NativeLoader
 
         logger.info("%s loader: native, %d threads", split, num_workers)
         return NativeLoader(dataset, batch_size, shuffle=shuffle, seed=seed,
                             n_threads=num_workers)
     logger.info("%s loader: python", split)
-    return Loader(dataset, batch_size, shuffle=shuffle, seed=seed)
+    return Loader(dataset, batch_size, shuffle=shuffle, seed=seed, rows=rows)

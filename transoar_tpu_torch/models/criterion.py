@@ -10,10 +10,14 @@
   outputs, with ``aux_loss_on_final`` on the final outputs as the
   reference does.
 - ``present_total`` replaces the two batch-coupling normalizers by a
-  batch-global count, so per-sample calls sum to the batched loss.
+  batch-global count (``batch_normalizer`` summed over the dp ranks), so
+  the ranks' losses sum to the global batch's.
 - ``loss_segmentation``: cross-entropy + nnU-Net SoftDice (batch dice,
   softmax, background excluded, smooth 1e-5) of the seg-proxy head against
-  the label batch (foreground / background under ``fg_bg``).
+  the label batch (foreground / background under ``fg_bg``). Under dp
+  (``group``, the dp process group) the SoftDice's sums are all-reduced
+  with a differentiable all-reduce and both terms are divided by dp: each
+  rank's share of the global batch's loss, whose sum over the ranks is it.
 - ``build_criterion``: this Criterion for the focused neck, the DETR set
   criterion (``models/detr.SetCriterion``) for ``detr`` / ``def_detr``,
   ``models/retina.RetinaCriterion`` for a ``retina`` section.
@@ -68,27 +72,38 @@ def loss_bboxes(pred_boxes, matches, tgt_boxes, tgt_present, num_organs,
     return loss_l1, loss_giou
 
 
-def soft_dice_loss(logits, seg_onehot, smooth=1e-5):
+def soft_dice_loss(logits, seg_onehot, smooth=1e-5, group=None):
     """nnU-Net SoftDice over batch and space, softmax, background excluded;
-    logits / seg_onehot [B, S0, S1, S2, K]."""
+    logits / seg_onehot [B, S0, S1, S2, K]. With ``group`` the sums run
+    over the group's ranks' batches too."""
     probs = logits.float().softmax(-1)
     dims = (0, 1, 2, 3)
-    tp = (probs * seg_onehot).sum(dims)
-    fp = (probs * (1.0 - seg_onehot)).sum(dims)
-    fn = ((1.0 - probs) * seg_onehot).sum(dims)
+    sums = torch.stack([(probs * seg_onehot).sum(dims),
+                        (probs * (1.0 - seg_onehot)).sum(dims),
+                        ((1.0 - probs) * seg_onehot).sum(dims)])
+    if group is not None:
+        from torch.distributed.nn.functional import all_reduce
+
+        sums = all_reduce(sums, group=group)
+    tp, fp, fn = sums
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
     return 1.0 - dc[1:].mean()
 
 
-def loss_segmentation(pred_seg, seg_targets, fg_bg=True):
+def loss_segmentation(pred_seg, seg_targets, fg_bg=True, group=None):
     """(CE, SoftDice) of pred_seg [B, S0, S1, S2, K] against the int labels
-    seg_targets [B, S0, S1, S2]."""
+    seg_targets [B, S0, S1, S2]; with ``group`` (dp) this rank's share of
+    the global batch's terms."""
     K = pred_seg.shape[-1]
     tgt = (seg_targets > 0).long() if fg_bg else seg_targets.long()
     onehot = F.one_hot(tgt, K).float()
     logp = pred_seg.float().log_softmax(-1)
     ce = -(onehot * logp).sum(-1).mean()
-    return ce, soft_dice_loss(pred_seg, onehot)
+    dice = soft_dice_loss(pred_seg, onehot, group=group)
+    if group is None:
+        return ce, dice
+    dp = torch.distributed.get_world_size(group)
+    return ce / dp, dice / dp
 
 
 class Criterion:
@@ -114,10 +129,15 @@ class Criterion:
                      cost_giou=self.cost_giou,
                      anchor_matching=self.anchor_matching)
 
-    def __call__(self, outputs, targets, anchors,
-                 present_total=None) -> Dict[str, Any]:
+    def batch_normalizer(self, targets, anchors=None):
+        """The batch's present-organ count (f32): summed over the dp ranks,
+        the ``present_total`` of the global batch."""
+        return targets["present"].sum().float()
+
+    def __call__(self, outputs, targets, anchors, present_total=None,
+                 group=None) -> Dict[str, Any]:
         """outputs: the model's dict; targets: {'boxes', 'present'[,
-        'seg']}."""
+        'seg']}; ``group``: the dp group of the seg proxy's terms."""
         tgt_boxes, tgt_present = targets["boxes"], targets["present"]
 
         num_boxes = cls_count = None
@@ -142,7 +162,7 @@ class Criterion:
         }
         if self.seg_proxy:
             losses["segce"], losses["segdice"] = loss_segmentation(
-                outputs["pred_seg"], targets["seg"], self.fg_bg)
+                outputs["pred_seg"], targets["seg"], self.fg_bg, group)
         else:
             zero = torch.zeros((), device=tgt_boxes.device)
             losses["segce"] = losses["segdice"] = zero

@@ -17,7 +17,10 @@
   assignment on the host (``models/hungarian.py``: the step's one host
   sync), then per layer softmax cross-entropy with a no-object class
   weighted ``eos_coef`` (absent slots write no target), and L1 + GIoU on
-  the matched pairs, normalized by the present boxes. All f32.
+  the matched pairs, normalized by the present boxes. All f32. Under dp
+  the two normalizers come from ``batch_normalizer`` summed over the
+  ranks (``present_total``): the present boxes and the class weights'
+  sum, both functions of the present count.
 
 Parameter names (the reference's DETR branches are not in this checkout):
 ``_neck.layers.{i}.{self_attn, norm_sa, cross_attn, norm_ca, ffn}``, and
@@ -219,6 +222,7 @@ class SetCriterion:
 
     def __init__(self, config):
         self.num_classes = config["neck"]["num_organs"]
+        self.num_queries = int(config["neck"]["num_queries"])
         m = config["matching"]
         self.cost_class = float(m.get("cost_class", 1))
         self.cost_bbox = float(m.get("cost_bbox", 5))
@@ -227,8 +231,20 @@ class SetCriterion:
         self.aux_loss = bool(config["neck"].get("aux_loss"))
         self.clock = MatchClock()
 
-    def _losses(self, logits, boxes, assign, tgt_boxes, tgt_present):
-        """One layer: logits [B, Q, K+1], boxes [B, Q, 6], assign [B, G]."""
+    def batch_normalizer(self, targets, anchors=None):
+        """[present boxes, class weights' sum] of the batch, f32. Every
+        present box is matched to one query, so the weights sum to
+        present + eos_coef * (B * Q - present) whichever queries the match
+        picks; both are sums over the rows."""
+        present = targets["present"].sum().float()
+        B = targets["present"].shape[0]
+        return torch.stack([present, present + (B * self.num_queries
+                                                - present) * self.eos_coef])
+
+    def _losses(self, logits, boxes, assign, tgt_boxes, tgt_present,
+                norm=None):
+        """One layer: logits [B, Q, K+1], boxes [B, Q, 6], assign [B, G];
+        ``norm``: ``batch_normalizer``'s pair, else this batch's."""
         B, Q, _ = logits.shape
         G = tgt_boxes.shape[1]
         # absent slots write to a dropped column Q, never to query 0
@@ -240,12 +256,14 @@ class SetCriterion:
         ce = F.cross_entropy(logits.transpose(1, 2), target,
                              reduction="none")
         weights = torch.where(target > 0, 1.0, self.eos_coef)
-        loss_ce = (ce * weights).sum() / weights.sum()
+        weight_total = weights.sum() if norm is None else norm[1]
+        loss_ce = (ce * weights).sum() / weight_total
 
         matched = boxes.gather(1, assign.clamp_min(0)[..., None].expand(
             B, G, 6))
         present = tgt_present.float()
-        num_boxes = present.sum().clamp_min(1.0)
+        num_boxes = (present.sum() if norm is None else norm[0]).clamp_min(
+            1.0)
         l1 = ((matched - tgt_boxes).abs().sum(-1) * present).sum() / num_boxes
         giou = generalized_box_iou_elementwise(
             box_cxcyczwhd_to_xyzxyz(matched.clamp_min(0.0)),
@@ -253,8 +271,10 @@ class SetCriterion:
         loss_giou = ((1.0 - giou) * present).sum() / num_boxes
         return loss_ce, l1, loss_giou
 
-    def __call__(self, outputs, targets, anchors=None) -> Dict[str, Any]:
-        """outputs: the model's dict; targets: {'boxes', 'present'}."""
+    def __call__(self, outputs, targets, anchors=None, present_total=None,
+                 group=None) -> Dict[str, Any]:
+        """outputs: the model's dict; targets: {'boxes', 'present'};
+        ``present_total``: ``batch_normalizer`` of the global batch."""
         tgt_boxes = targets["boxes"].float()
         tgt_present = targets["present"]
         logits = outputs["pred_logits"][None].float()
@@ -272,7 +292,8 @@ class SetCriterion:
         zero = torch.zeros((), device=tgt_boxes.device)
         for i in range(logits.shape[0]):
             ce, l1, giou = self._losses(logits[i], boxes[i], assign[i],
-                                        tgt_boxes, tgt_present)
+                                        tgt_boxes, tgt_present,
+                                        present_total)
             suffix = "" if i == 0 else f"_{i - 1}"
             losses.update({f"cls{suffix}": ce, f"bbox{suffix}": l1,
                            f"giou{suffix}": giou})

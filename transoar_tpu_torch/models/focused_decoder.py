@@ -94,7 +94,9 @@ def generate_attn_bias(bbox_props, input_shape, restrict=True):
 
 class FocusedAttn(nn.Module):
     """Multi-head cross-attention with a static per-organ additive bias
-    (reference FocusedAttn, focused_decoder.py:192-262)."""
+    (reference FocusedAttn, focused_decoder.py:192-262). Under tensor
+    parallelism q, k, v are column-parallel (the rank's heads) and ``proj``
+    row-parallel."""
 
     PROJ_DROP = 0.1  # fixed, whatever neck.dropout says, as the JAX layer
 
@@ -103,6 +105,7 @@ class FocusedAttn(nn.Module):
                  share_qk_proj: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.num_organs = num_organs
         self.dtype = dtype
         if not share_qk_proj:  # else q goes through k_proj, as the reference
@@ -123,12 +126,14 @@ class FocusedAttn(nn.Module):
         With ``return_weights`` also the attention weights over the full
         token axis [B, H, Q, S] (the RoI path scatters each organ's crop
         back onto it, f32)."""
-        B, Q, C = q.shape
-        H, hd = self.num_heads, C // self.num_heads
+        B, Q = q.shape[:2]
+        hd = self.head_dim
         O = self.num_organs
         qpo = Q // O
 
-        kh = self.k_proj(k).unflatten(-1, (H, hd))
+        kh = self.k_proj(k)
+        H = kh.shape[-1] // hd  # the local heads under tensor parallelism
+        kh = kh.unflatten(-1, (H, hd))
         vh = self.v_proj(v).unflatten(-1, (H, hd))
         q_proj = getattr(self, "q_proj", self.k_proj)
         qh = q_proj(q).unflatten(-1, (H, hd)) * hd ** -0.5
@@ -160,7 +165,7 @@ class FocusedAttn(nn.Module):
             attn = logits.softmax(-1).to(self.dtype).view(B, H, Q, -1)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, vh)
             weights = attn
-        out = dropout(self.proj(out.reshape(B, Q, C)),
+        out = dropout(self.proj(out.reshape(B, Q, H * hd)),
                       self.PROJ_DROP if self.training else 0.0, generator)
         return (out, weights) if return_weights else out
 

@@ -10,6 +10,13 @@ bridge (``utils/weights.py``) and ``transoar_tpu.utils.torch_import`` rely on.
 Dropout (``dropout``) and stochastic depth (``drop_path``) draw their masks
 from the ``torch.Generator`` passed to ``forward`` and apply only in
 ``train()`` mode, as flax's ``nn.Dropout`` with ``deterministic=False``.
+
+Under tensor parallelism (``parallel/tp.py``) ``Linear``, the FFN and
+``MultiHeadSelfAttention`` hold their tp rank's shard and call the tp
+collectives; the head count of an attention is then the local one, the
+projected width over the head dim. Dropout on a sharded activation draws
+the mask of the whole tensor and keeps the rank's slice, so every tp rank
+draws alike and keeps the masks one process would give those units.
 """
 
 from __future__ import annotations
@@ -21,15 +28,27 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from transoar_tpu_torch.ops.conv3d import Conv3d, pack_depth, unpack_depth
+from transoar_tpu_torch.parallel import tp as tp_lib
 
 
 def dropout(x: torch.Tensor, p: float,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            shard=None) -> torch.Tensor:
     """Zero each element with probability ``p`` and scale the rest by
-    1 / (1 - p) in x's dtype (flax ``nn.Dropout``); identity at p = 0."""
+    1 / (1 - p) in x's dtype (flax ``nn.Dropout``); identity at p = 0.
+    ``shard`` = (dim, full size, start): ``x`` is the slice
+    [start, start + x.shape[dim]) of a tensor whose ``dim`` has the full
+    size; the mask is drawn at the full size and sliced."""
     if p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    else:
+        dim, full, start = shard
+        shape = list(x.shape)
+        shape[dim] = full
+        keep = (torch.rand(shape, generator=generator, device=x.device)
+                >= p).narrow(dim, start, x.shape[dim])
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -116,13 +135,17 @@ class LayerNorm(nn.Module):
 
 
 class Linear(nn.Module):
-    """``nn.Linear`` layout ([out, in] weight) computing in ``dtype``."""
+    """``nn.Linear`` layout ([out, in] weight) computing in ``dtype``.
+    ``tp`` (set by ``parallel.tp.apply_tp``): column-parallel (the rank's
+    output rows) or row-parallel (the rank's input columns; the partial
+    sums all-reduced, then the bias)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32, init: str = "lecun"):
         super().__init__()
         self.dtype = dtype
         self.init = init
+        self.tp = None
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
@@ -141,7 +164,24 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        w = self.weight.to(self.dtype)
+        if self.tp is None:
+            return F.linear(x.to(self.dtype), w, b)
+        if self.tp.mode == "column":
+            return F.linear(tp_lib.copy_to_tp(x.to(self.dtype), self.tp), w,
+                            b)
+        if x.shape[-1] != w.shape[1]:  # a replicated input: take the slice
+            x = tp_lib.scatter_to_tp(x, self.tp)
+        y = tp_lib.reduce_from_tp(F.linear(x.to(self.dtype), w), self.tp)
+        return y if b is None else y + b
+
+    def tp_slice(self):
+        """(dim, full size, start) of a column-parallel output, for
+        ``dropout``; None when the output is whole."""
+        if self.tp is None or self.tp.mode != "column":
+            return None
+        n = self.weight.shape[0]
+        return (-1, n * self.tp.size, n * self.tp.rank)
 
 
 def conv_in_relu(conv: Conv3d, norm: InstanceNorm, x: torch.Tensor,
@@ -231,7 +271,7 @@ def feed_forward(x: torch.Tensor, linear1: Linear, linear2: Linear,
                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Transformer FFN with residual and post-LayerNorm; dropout ``p`` after
     the activation and after the second projection."""
-    h = dropout(F.relu(linear1(x)), p, generator)
+    h = dropout(F.relu(linear1(x)), p, generator, linear1.tp_slice())
     return norm(x + dropout(linear2(h), p, generator))
 
 
@@ -257,14 +297,18 @@ class FFN(nn.Module):
 class MultiHeadSelfAttention(nn.Module):
     """``nn.MultiheadAttention`` parameters (packed ``in_proj_weight``
     [3C, C], ``in_proj_bias``, ``out_proj``); softmax in f32, dropout on
-    the probabilities."""
+    the probabilities. Under ``tp`` the packed projection holds the rank's
+    heads' rows of each of q, k and v ([3C / tp, C]) and ``out_proj`` is
+    row-parallel."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.dropout = dropout
         self.dtype = dtype
+        self.tp = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Linear(d_model, d_model, dtype=dtype, init="xavier")
@@ -281,21 +325,26 @@ class MultiHeadSelfAttention(nn.Module):
                 return_weights: bool = False):
         """The output, or (output, head-averaged f32 weights [B, Q, K]) with
         ``return_weights``, torch ``MultiheadAttention``'s convention."""
-        C = q.shape[-1]
-        H, hd = self.num_heads, C // self.num_heads
         w = self.in_proj_weight.to(self.dtype)
         b = self.in_proj_bias.to(self.dtype)
+        C = w.shape[0] // 3  # the local width under tp
+        hd = self.head_dim
+        H = C // hd
 
         def proj(x, i):
-            y = F.linear(x.to(self.dtype), w[i * C:(i + 1) * C],
-                         b[i * C:(i + 1) * C])
+            x = x.to(self.dtype)
+            if self.tp is not None:
+                x = tp_lib.copy_to_tp(x, self.tp)
+            y = F.linear(x, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
             return y.unflatten(-1, (H, hd))
 
         qh, kh, vh = proj(q, 0), proj(k, 1), proj(v, 2)
         attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(hd)
         attn = attn.float().softmax(-1).to(self.dtype)
+        shard = None if self.tp is None else (1, self.num_heads,
+                                              self.tp.rank * H)
         attn = dropout(attn, self.dropout if self.training else 0.0,
-                       generator)
+                       generator, shard)
         out = self.out_proj(torch.einsum("bhqk,bkhd->bqhd", attn,
                                          vh).flatten(-2))
         return (out, attn.float().mean(1)) if return_weights else out

@@ -20,7 +20,9 @@ dense anchors, shared conv towers, the focal criterion and the NMS decode.
   (positive >= ``pos_iou``, negative < ``neg_iou``, the rest ignored),
   sigmoid focal loss over the valid anchors, L1 on the encoded deltas and
   1 - GIoU on the decoded, clipped boxes of the positives, all over the
-  batch's ``max(num_pos, 1)``; Retina U-Net adds the seg losses.
+  batch's ``max(num_pos, 1)`` (under dp the global batch's, from
+  ``batch_normalizer`` summed over the ranks); Retina U-Net adds the seg
+  losses.
 - ``retina_inference``: on the outputs' device, one ``topk`` of
   ``candidates`` anchors per class (sorted by score, ties in ``topk``'s
   order), only those decoded, every class of every volume suppressed in
@@ -228,9 +230,18 @@ class RetinaCriterion:
         best_iou, best_gt = iou.max(-1)
         return best_gt, best_iou
 
-    def __call__(self, outputs, targets,
-                 anchors) -> Dict[str, torch.Tensor]:
-        """anchors [A, 6] cxcyczwhd; targets boxes [B, G, 6] + present."""
+    def batch_normalizer(self, targets, anchors):
+        """The batch's positive-anchor count (f32): summed over the dp
+        ranks, the ``present_total`` of the global batch."""
+        _, best_iou = self.assign(targets["boxes"].float(),
+                                  targets["present"], anchors)
+        return (best_iou >= self.pos_iou).sum().float()
+
+    def __call__(self, outputs, targets, anchors, present_total=None,
+                 group=None) -> Dict[str, torch.Tensor]:
+        """anchors [A, 6] cxcyczwhd; targets boxes [B, G, 6] + present;
+        ``present_total``: ``batch_normalizer`` of the global batch;
+        ``group``: the dp group of the seg proxy's terms."""
         logits = outputs["anchor_logits"]  # [B, A, C]
         deltas = outputs["anchor_deltas"]  # [B, A, 6]
         tgt_boxes = targets["boxes"].float()
@@ -243,7 +254,8 @@ class RetinaCriterion:
         classes = torch.arange(C, device=logits.device)
         cls_t = ((best_gt[..., None] == classes) & pos[..., None]).float()
         focal = sigmoid_focal_loss(logits, cls_t, self.alpha, self.gamma)
-        num_pos = pos.sum().float().clamp_min(1.0)
+        num_pos = (pos.sum().float() if present_total is None
+                   else present_total).clamp_min(1.0)
         loss_cls = torch.where(valid[..., None], focal, 0.0).sum() / num_pos
 
         matched = tgt_boxes.gather(
@@ -263,7 +275,7 @@ class RetinaCriterion:
                   "segce": zero, "segdice": zero}
         if self.seg_proxy and "pred_seg" in outputs:
             losses["segce"], losses["segdice"] = loss_segmentation(
-                outputs["pred_seg"], targets["seg"], self.fg_bg)
+                outputs["pred_seg"], targets["seg"], self.fg_bg, group)
         return losses
 
 

@@ -11,6 +11,19 @@ and the schedule, restores ``--resume`` (or, with ``--auto_resume``,
 ``runs/<experiment>/model_last.pt`` if it exists), freezes the run config
 to ``runs/<experiment>/config.json`` and runs the ``Trainer``. Runs on
 ``cuda`` unless asked for the CPU.
+
+Multi-GPU, one process per card:
+
+    torchrun --nproc_per_node=N -m transoar_tpu_torch.train --config <name>
+
+reads torchrun's environment (``parallel.mesh.init_distributed``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``), lays the ranks out by
+the config's ``parallel`` section (``dp``, ``tp``, ``fsdp``; ``sp`` > 1
+raises), loads each rank's rows of every global batch, shards the neck
+over tp and wraps the model in FSDP2 or DDP (``parallel.fsdp``). Only
+rank 0 logs to the run's log and writes the run directory; the process
+group is torn down at the end. Without torchrun's environment nothing of
+this happens.
 """
 
 from __future__ import annotations
@@ -22,9 +35,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from transoar_tpu_torch.data.dataset import get_loader
 from transoar_tpu_torch.models.transoarnet import build_model
+from transoar_tpu_torch.parallel.fsdp import parallelize
+from transoar_tpu_torch.parallel.mesh import (init_distributed,
+                                              layout_from_config,
+                                              local_batch_rows)
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training.train_state import make_optimizer
 from transoar_tpu_torch.training.trainer import Trainer
@@ -36,18 +54,27 @@ logger = logging.getLogger(__name__)
 
 def train(config, args, **trainer_options):
     """Build everything from ``config`` and train; returns the Trainer.
-    ``trainer_options`` go to the Trainer (its measurement options)."""
+    ``trainer_options`` go to the Trainer (its measurement options). In a
+    process group (torchrun) the run is laid out by ``parallel``."""
     device = torch.device(args.device)
-    train_loader = get_loader(config, "train", data_dir=args.data_dir)
+    layout = layout_from_config(config, device)
+    rows = local_batch_rows(layout, config["trainer"]["batch_size"])
+    train_loader = get_loader(config, "train", data_dir=args.data_dir,
+                              rows=rows)
+    # every rank validates on the whole split, as the JAX trainer
     val_split = "train" if config.get("overfit") else "val"
     val_loader = get_loader(config, val_split, data_dir=args.data_dir)
 
     generator = torch.Generator().manual_seed(int(config["seed"]))
     model = build_model(config, device=device, generator=generator)
-    optimizer, scheduler = make_optimizer(model, config,
-                                          max(len(train_loader), 1))
     logger.info("model parameters: %.2fM",
                 sum(p.numel() for p in model.parameters()) / 1e6)
+    if layout is not None:
+        logger.info("mesh dp %d x tp %d, %s", layout.dp, layout.tp,
+                    "FSDP2" if layout.fsdp else "DDP")
+        model = parallelize(model, layout, device)
+    optimizer, scheduler = make_optimizer(model, config,
+                                          max(len(train_loader), 1))
 
     path_to_run = Path.cwd() / "runs" / config["experiment_name"]
     resume_from = args.resume
@@ -61,14 +88,16 @@ def train(config, args, **trainer_options):
     epoch, metric_start_val = 0, 0.0
     if resume_from:
         epoch, metric_start_val = ckpt_lib.restore_checkpoint(
-            resume_from, model, optimizer, scheduler, device)
+            resume_from, model, optimizer, scheduler, device, layout)
         logger.info("resumed from %s at epoch %d (best %.3f)", resume_from,
                     epoch, metric_start_val)
-    ckpt_lib.freeze_run_config(config, path_to_run)
+    if layout is None or layout.rank == 0:
+        ckpt_lib.freeze_run_config(config, path_to_run)
 
     trainer = Trainer(config, model, train_loader, val_loader, path_to_run,
                       device, optimizer, scheduler, start_epoch=epoch,
-                      metric_start_val=metric_start_val, **trainer_options)
+                      metric_start_val=metric_start_val, layout=layout,
+                      **trainer_options)
     trainer.run()
     return trainer
 
@@ -86,17 +115,26 @@ def main(argv=None):
     parser.add_argument("--data_dir", type=str, default=None,
                         help="Dataset root (default ./dataset).")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="Torch device of the run (default cuda).")
+                        help="Torch device of the run (default cuda; "
+                             "cuda:LOCAL_RANK under torchrun).")
     args = parser.parse_args(argv)
 
-    config = validate_config(get_config(args.config,
-                                        dataset_dir=args.data_dir))
-    np.random.seed(config["seed"])
-    random.seed(config["seed"])
-    torch.manual_seed(config["seed"])
+    device = init_distributed(args.device)
+    if device is not None:
+        args.device = str(device)
+    try:
+        config = validate_config(get_config(args.config,
+                                            dataset_dir=args.data_dir))
+        np.random.seed(config["seed"])
+        random.seed(config["seed"])
+        torch.manual_seed(config["seed"])
 
-    set_root_logger(Path.cwd() / "logs" / "train.log")
-    return train(config, args)
+        if device is None or dist.get_rank() == 0:
+            set_root_logger(Path.cwd() / "logs" / "train.log")
+        return train(config, args)
+    finally:
+        if device is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

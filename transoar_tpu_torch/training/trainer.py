@@ -34,6 +34,20 @@
   best checkpoint on ``mAP_coco`` and ``model_last`` every epoch. Each
   epoch's history holds the train loop's wall time, loader included, and
   the volumes it stepped; ``Trainer.clock`` where the loop's time went.
+
+Multi-GPU (a ``parallel.mesh.Layout``; the model wrapped by
+``parallel.fsdp.parallelize``): each dp rank holds its rows of the global
+batch. The criterion takes the global batch's normalizers
+(``batch_normalizer`` all-reduced over dp) and the seg proxy's sums over
+dp, so each rank's loss is its share of the global batch's loss; the
+loss is scaled by dp before the backward, which undoes the gradient mean
+of DDP / FSDP2, so the update is that of the global batch. The reported
+losses are the shares summed over dp (one all-reduce a step), the
+``nan_guard: skip`` decision is all-reduced over every rank, the
+generator's seed folds in the dp index (``Layout.generator_seed``).
+Validation runs on every rank over the whole val split, as the JAX
+trainer; every rank makes the same best-checkpoint decision and the
+checkpoints are gathered by all and written by rank 0.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from transoar_tpu_torch.data.transforms import (HostAugmentingLoader,
                                                  augment_batch,
@@ -52,6 +67,8 @@ from transoar_tpu_torch.data.transforms import (HostAugmentingLoader,
 from transoar_tpu_torch.eval.evaluator import build_evaluator
 from transoar_tpu_torch.models.criterion import build_criterion, total_loss
 from transoar_tpu_torch.models.retina import retina_inference
+from transoar_tpu_torch.parallel.fsdp import unwrap
+from transoar_tpu_torch.parallel.tp import tp_sharded
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training.inference import inference
 from transoar_tpu_torch.training.train_state import (UpdateRule,
@@ -86,11 +103,28 @@ def _prepare(batch, stats):
     return image, batch["seg"].long()
 
 
+def _global_losses(losses, group):
+    """The ranks' shares summed over ``group``: the global batch's losses
+    (one all-reduce of the stacked scalars)."""
+    stacked = torch.stack(list(losses.values()))
+    dist.all_reduce(stacked, group=group)
+    return dict(zip(losses, stacked.unbind()))
+
+
+def _all_finite(loss, layout):
+    """Whether ``loss`` is finite on every rank (one host sync)."""
+    flag = torch.isfinite(loss).float()
+    if layout is not None:
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
 def make_train_step(model, criterion, optimizer, scheduler, config,
-                    generator=None):
+                    generator=None, layout=None):
     """``step(batch) -> {loss name: device scalar}``; ``batch`` holds the
-    device tensors ``image`` [B, S0, S1, S2, 1] and ``seg`` [B, S0, S1, S2].
-    The step leaves the model's train/eval mode as it finds it."""
+    device tensors ``image`` [B, S0, S1, S2, 1] and ``seg`` [B, S0, S1, S2]
+    (a dp rank's rows under ``layout``). The step leaves the model's
+    train/eval mode as it finds it."""
     tcfg = config["trainer"]
     coefs = config["loss_coefs"]
     num_classes = config["neck"]["num_organs"]
@@ -102,10 +136,14 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
                          "step's generator: pass one")
     aug_cfg = config.get("augmentation", {})
     nan_guard = tcfg.get("nan_guard", "off")
-    update = UpdateRule(optimizer, scheduler,
-                        [p for p in model.parameters() if p.requires_grad],
+    net = unwrap(model)
+    trained = [(p, s) for p, s in zip(model.parameters(), tp_sharded(model))
+               if p.requires_grad]
+    update = UpdateRule(optimizer, scheduler, [p for p, _ in trained],
                         clip=tcfg.get("clip_max_norm", -1),
-                        accum=tcfg.get("grad_accum_steps", 1))
+                        accum=tcfg.get("grad_accum_steps", 1),
+                        layout=layout, sharded=[s for _, s in trained])
+    group = None if layout is None else layout.dp_group
 
     def train_step(batch):
         if mode == "device":
@@ -116,14 +154,23 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
             image, seg = _prepare(batch, None if mode == "host" else stats)
         targets = derive_targets(seg, num_classes, padding)
         out = model(image, generator=generator)
-        losses = criterion(out, targets, model.anchors)
+        if layout is None:
+            losses = criterion(out, targets, net.anchors)
+        else:
+            norm = criterion.batch_normalizer(targets, net.anchors)
+            dist.all_reduce(norm, group=group)
+            losses = criterion(out, targets, net.anchors, present_total=norm,
+                               group=group)
         loss = total_loss(losses, coefs)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if nan_guard != "skip" or torch.isfinite(loss).item():
-            update()
+        (loss if layout is None else loss * layout.dp).backward()
         losses["total"] = loss
-        return {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        if layout is not None:
+            losses = _global_losses(losses, group)
+        if nan_guard != "skip" or _all_finite(losses["total"], layout):
+            update()
+        return losses
 
     return train_step
 
@@ -134,13 +181,14 @@ def make_eval_step(model, criterion, config):
     num_classes = config["neck"]["num_organs"]
     padding = config.get("bbox_padding", 1)
     stats = config.get("foreground_voxel_statistics")
+    net = unwrap(model)
 
     @torch.no_grad()
     def eval_step(batch):
         image, seg = _prepare(batch, stats)
         targets = derive_targets(seg, num_classes, padding)
         out = model(image)
-        losses = criterion(out, targets, model.anchors)
+        losses = criterion(out, targets, net.anchors)
         losses["total"] = total_loss(losses, coefs)
         return losses, {k: out[k] for k in _PRED_KEYS if k in out}, targets
 
@@ -202,10 +250,12 @@ class _StepClock:
 class Trainer:
     def __init__(self, config, model, train_loader, val_loader, path_to_run,
                  device="cuda", optimizer=None, scheduler=None,
-                 start_epoch=0, metric_start_val=0.0, _host_ahead=None):
+                 start_epoch=0, metric_start_val=0.0, _host_ahead=None,
+                 layout=None):
         self._config = config
         self._device = torch.device(device)
-        self._model = model
+        self._model = model  # under DDP / FSDP2 with a layout
+        self._layout = layout
         tcfg = config["trainer"]
         if _augmentation_mode(config) == "host":
             workers = int(tcfg.get("num_workers", 8) or 8)
@@ -232,15 +282,19 @@ class Trainer:
         default_h2d = ("float32" if str(tcfg.get("precision", "bfloat16"))
                        == "float32" else "bfloat16")
         self._h2d_bf16 = str(tcfg.get("h2d_dtype", default_h2d)) == "bfloat16"
+        seed = int(config.get("seed", 0))
+        if layout is not None:
+            seed = layout.generator_seed(seed)
         self._generator = torch.Generator(device=self._device).manual_seed(
-            int(config.get("seed", 0)))
+            seed)
         self._copy_stream = (torch.cuda.Stream(self._device)
                              if self._device.type == "cuda" else None)
 
         self._criterion = criterion = build_criterion(config)
         self._evaluator = build_evaluator(config)
         self._train_step = make_train_step(model, criterion, optimizer,
-                                           scheduler, config, self._generator)
+                                           scheduler, config, self._generator,
+                                           layout)
         self._eval_step = make_eval_step(model, criterion, config)
         self.clock = _StepClock(self._device)
         self.history = []  # one {"epoch", "train"/"val"/"metrics"} per epoch
@@ -307,7 +361,8 @@ class Trainer:
             self.clock.start()
             step_losses.append(self._train_step(device_batch))
             self.clock.stop()
-            volumes += device_batch["image"].shape[0]
+            volumes += device_batch["image"].shape[0] * (
+                1 if self._layout is None else self._layout.dp)
         means, bad = {}, []
         if step_losses:
             stacked = {k: torch.stack([s[k] for s in step_losses]).cpu()
@@ -333,7 +388,7 @@ class Trainer:
             count += 1
             if "anchor_logits" in preds:  # RetinaNet: decoded on the card
                 boxes, classes, scores = retina_inference(
-                    preds, self._model.anchors, num_organs)
+                    preds, unwrap(self._model).anchors, num_organs)
             else:
                 boxes, classes, scores = inference(
                     {k: v.cpu().numpy() for k, v in preds.items()},
@@ -353,7 +408,8 @@ class Trainer:
             self._metric_max_val = metric
             ckpt_lib.save_training_checkpoint(
                 self._path_to_run, f"model_best_{metric:.3f}", self._model,
-                self.optimizer, self.scheduler, epoch, self._metric_max_val)
+                self.optimizer, self.scheduler, epoch, self._metric_max_val,
+                self._layout)
         return means, metric_scores
 
     def run(self):
@@ -374,7 +430,7 @@ class Trainer:
                 ckpt_lib.save_training_checkpoint(
                     self._path_to_run, "model_last", self._model,
                     self.optimizer, self.scheduler, epoch,
-                    self._metric_max_val)
+                    self._metric_max_val, self._layout)
             self.history.append(record)
             logger.info("epoch %d done in %.1fs total_loss=%.4f mAP_coco=%s",
                         epoch, time.monotonic() - t0,
