@@ -97,7 +97,7 @@ each printing a line; any failure exits non-zero before the result lines:
    6 steps + 3 validations; as phase 11, with 8 / 8 window forward /
    backward and 4 / 1 / 2 band-conv launches per step, every window launch
    on fwd_wg / bwd_wg, and peak memory under 40 GiB;
-14. loop variants: each model's train loop for one epoch of 40 steps
+14. loop variants: each model's train loop for one epoch of 24 steps
    (a train split of links cycling through its dataset's cases) with no
    augmentation, with host augmentation as shipped (4 cases in flight),
    one batch at a time (the JAX package's design: no case in flight
@@ -154,7 +154,21 @@ each printing a line; any failure exits non-zero before the result lines:
    under ``torch.distributed.run`` (one process a card) on foc_dec_amos as
    shipped with ``parallel.fsdp: true`` for one epoch of phase 10's
    dataset, its launches on every rank and a checkpoint in the plain
-   layout, then ``test.main --val`` on it in this process.
+   layout, then ``test.main --val`` on it in this process;
+20. sp: spatial parallelism (``parallel.sp: 2``) on foc_dec_amos and
+   swin_fpn_visceral at full width (batch 2, 2 steps from the seeded
+   weights on phase 10's and 13's cases, eval(): no dropout), in two
+   processes (two cards over NCCL, else sharing the card over gloo), each
+   holding half of the volume's first axis: f32 (cuDNN's TF32 convs)
+   against the one-rank f32 step with phase 19's bounds, then bf16 with the
+   first step's loss within SP_BF16_LOSS_RTOL of the one-rank bf16 step;
+   every rank launching kernels 1-3 (and 4-5 on Swin) as often as one
+   rank does, on the f32 kernels in f32 and the wide / fold and wg ones in
+   bf16; the step event ms and peak memory of every rank beside the one
+   rank's; then ``train.main`` under ``torch.distributed.run`` on each
+   config as shipped with ``parallel.sp: 2`` for one epoch of its dataset
+   (its launches on every rank, a checkpoint in the plain layout). Two processes sharing a card measure correctness and memory,
+   not scaling.
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; every serving, training and test path also requires
@@ -162,10 +176,11 @@ every launch of the band conv's forward kernel (forward and dx), and every
 training path every launch of its dw kernel, to have taken the wide or the
 fold variant, never the generic one, and every launch of the window
 kernels to have taken fwd_wg / bwd_wg (none on the flagship's paths).
-Phase 19's paths run in its ranks' processes, which set their counts to 0
-and report them (its f32 steps take the band conv's f32 kernels; the
-variants of the other processes are not read); ``parallel_fsdp_test``
-runs here and is checked as the other test paths.
+Phase 19's and 20's paths run in their ranks' processes, which set their
+counts to 0 and report them (phase 19's f32 steps take the band conv's f32
+kernels, and its ranks' variants are not read; phase 20 checks its ranks'
+variants itself); ``parallel_fsdp_test`` runs here and is checked as the
+other test paths.
 Then a line with each model's loop rates in every augmentation setting
 side by side and the host's core count, one with phase 16's and 18's configs
 side by side, one JSON line of per-kernel results (each kernel's launches on
@@ -209,8 +224,9 @@ TRAIN_CASES, VAL_CASES, EPOCHS, BATCH = 8, 2, 2, 2
 SWIN_EPOCHS = 2
 # each loop variant: one epoch of LOOP_STEPS steps over a train split of
 # links to the dataset's train cases, so that filling the augmenter and
-# the prefetch before the first step is a few per cent of the epoch
-LOOP_EPOCHS, LOOP_STEPS = 1, 40
+# the prefetch before the first step is a few per cent of the epoch (24
+# since phase 20 came: the script keeps to its time)
+LOOP_EPOCHS, LOOP_STEPS = 1, 24
 # band conv launches per train step at batch 2 with encoder remat
 STEP_LAUNCHES = {"packed_conv": 4, "packed_conv_dx": 1, "packed_conv_dw": 2}
 # swin_fpn_visceral (160x160x256): per Swin stage, the windows of one volume
@@ -1850,12 +1866,15 @@ PARALLEL_LOSS_RTOL, PARALLEL_GRAD_REL = 1e-4, 1e-3
 
 
 def _mode_layout(mode, world):
-    """(dp, tp, fsdp, tp_always) of a phase-19 mode: ``ddp`` / ``dp``
-    data parallel under DDP, ``fsdp`` under FSDP2, ``tp`` the neck over
-    every rank (at one rank over a one-rank group)."""
+    """(dp, sp, tp, fsdp, tp_always) of a phase-19 or phase-20 mode:
+    ``ddp`` / ``dp`` data parallel under DDP, ``fsdp`` under FSDP2, ``tp``
+    the neck over every rank (at one rank over a one-rank group), ``sp``
+    the volume's S0 over every rank (DDP over the dp x sp group)."""
     if mode == "tp":
-        return 1, world, False, world == 1
-    return world, 1, mode == "fsdp", False
+        return 1, 1, world, False, world == 1
+    if mode == "sp":
+        return 1, world, 1, False, False
+    return world, 1, 1, mode == "fsdp", False
 
 
 def _full_grads(model, layout):
@@ -1874,10 +1893,12 @@ def _full_grads(model, layout):
     return tp_lib.gather_state(grads, plan, layout.tp_group, layout.tp)
 
 
-def _parallel_steps(cfg, model, layout, batches, device):
-    """PARALLEL_STEPS train steps (model in eval(): no dropout) on this
-    rank's rows of each global batch, every count at 0 before: (losses,
-    step event ms, the first step's whole gradients, counts, peak)."""
+def _parallel_steps(cfg, model, layout, batches, device,
+                    steps=PARALLEL_STEPS):
+    """``steps`` train steps (model in eval(): no dropout) on this rank's
+    rows of each global batch, every count at 0 before: (losses, step
+    event ms, the first step's whole gradients, counts (the wrappers' and,
+    under ``"variants"``, the kernels' by variant), peak)."""
     from transoar_tpu_torch.models.criterion import build_criterion
     from transoar_tpu_torch.parallel.mesh import local_batch_rows
     from transoar_tpu_torch.training.train_state import make_optimizer
@@ -1890,7 +1911,7 @@ def _parallel_steps(cfg, model, layout, batches, device):
     rows = local_batch_rows(layout, BATCH)
     rows = slice(None) if rows is None else rows
     on_card = [{k: torch.from_numpy(batches[k][i][rows]).to(device)
-                for k in ("image", "seg")} for i in range(PARALLEL_STEPS)]
+                for k in ("image", "seg")} for i in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1905,7 +1926,20 @@ def _parallel_steps(cfg, model, layout, batches, device):
             grads = _full_grads(model, layout)
     torch.cuda.synchronize()
     return ([float(v) for v in losses], [a.elapsed_time(b) for a, b in marks],
-            grads, _counts(), torch.cuda.max_memory_allocated() / 2 ** 30)
+            grads, dict(_counts(), variants=_variant_counts()),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _variant_counts():
+    """The band conv's forward and dw and the window attention's forward
+    and backward kernel launches by variant."""
+    from transoar_tpu_torch.ops.kernels import window_attention as wa
+
+    pc = _kernels()
+    return {name: {k: v for k, v in table.items() if v} for name, table in (
+        ("forward", pc.variant_launches), ("dw", pc.dw_variant_launches),
+        ("window", wa.variant_launches),
+        ("window_bwd", wa.bwd_variant_launches))}
 
 
 def _grad_rel_l2(grads, ref):
@@ -1936,30 +1970,42 @@ def _parallel_rank(spec_path, out):
     batches = dict(np.load(out.parent / "batches.npz"))
     rank, world = dist.get_rank(), dist.get_world_size()
 
-    def model():
+    def model(cfg):
         return build_model(cfg, device=device, generator=torch.Generator()
                            .manual_seed(int(cfg["seed"])))
 
+    steps = spec.get("steps", PARALLEL_STEPS)
     results, mine = {}, {}
     try:
-        if rank == 0:
-            losses, ms, ref, counts, peak = _parallel_steps(
-                cfg, model(), None, batches, device)
-            results["plain"] = {"loss": losses, "step_event_ms": ms,
-                                "peak_gib": peak, "launches": counts}
-        dist.barrier()
-        for mode in spec["modes"]:
-            dp, tp, fsdp, always = _mode_layout(mode, world)
-            layout = Layout(make_mesh(dp, 1, tp, "cuda"), fsdp=fsdp)
-            wrapped = parallelize(model(), layout, device, tp_always=always)
-            losses, ms, grads, counts, peak = _parallel_steps(
-                cfg, wrapped, layout, batches, device)
-            mine[mode] = {"launches": counts, "peak_gib": peak}
+        for precision in spec.get("precisions", [None]):
+            # phase 20 runs each precision in turn: its keys are suffixed
+            tag = "" if precision is None else f"_{precision}"
+            pcfg = cfg if precision is None else dict(
+                cfg, trainer=dict(cfg["trainer"], precision=precision))
             if rank == 0:
-                results[mode] = {"loss": losses, "step_event_ms": ms,
-                                 "grad_rel_l2_max": _grad_rel_l2(grads, ref)}
-            del wrapped, grads
+                losses, ms, ref, counts, peak = _parallel_steps(
+                    pcfg, model(pcfg), None, batches, device, steps)
+                results["plain" + tag] = {"loss": losses,
+                                          "step_event_ms": ms,
+                                          "peak_gib": peak,
+                                          "launches": counts}
             dist.barrier()
+            for mode in spec["modes"]:
+                dp, sp, tp, fsdp, always = _mode_layout(mode, world)
+                layout = Layout(make_mesh(dp, sp, tp, "cuda"), fsdp=fsdp)
+                wrapped = parallelize(model(pcfg), layout, device,
+                                      tp_always=always)
+                losses, ms, grads, counts, peak = _parallel_steps(
+                    pcfg, wrapped, layout, batches, device, steps)
+                mine[mode + tag] = {"launches": counts, "peak_gib": peak}
+                if rank == 0:
+                    results[mode + tag] = {
+                        "loss": losses, "step_event_ms": ms,
+                        "grad_rel_l2_max": _grad_rel_l2(grads, ref)}
+                del wrapped, grads
+                dist.barrier()
+            if rank == 0:
+                del ref
     finally:
         (out / f"rank{rank}.json").write_text(json.dumps(mine))
         if rank == 0:
@@ -1967,11 +2013,16 @@ def _parallel_rank(spec_path, out):
         dist.destroy_process_group()
 
 
-def _train_cli_rank(out, argv):
-    """One rank of ``train.main`` under torchrun (phase 19), every count at
-    0 before; writes its counts, peak memory and train history."""
+def _train_cli_rank(out, argv, backend=None):
+    """One rank of ``train.main`` under torchrun (phases 19 and 20), every
+    count at 0 before; writes its counts, peak memory and train history.
+    ``backend``: join the process group over it first (gloo for two ranks
+    sharing one card, which NCCL refuses); ``train.main`` keeps it."""
     from transoar_tpu_torch import train
+    from transoar_tpu_torch.parallel.mesh import init_distributed
 
+    if backend is not None:
+        init_distributed(argv[argv.index("--device") + 1], backend)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     trainer = train.main(argv)
@@ -2049,7 +2100,7 @@ def _parallel_run(root, name, cfg, world, device, backend, modes):
                                                    plain["loss"])]
         for r, facts in enumerate(ranks):
             launched = {k: v for k, v in facts[mode]["launches"].items()
-                        if v}
+                        if v and k != "variants"}
             if launched != want:
                 failures.append(f"parallel {name} {mode} rank {r} launched "
                                 f"{launched}, want {want}")
@@ -2060,7 +2111,9 @@ def _parallel_run(root, name, cfg, world, device, backend, modes):
                 f"{plain['loss']} (rel {max(rel):.2e}), gradient rel-L2 "
                 f"{got['grad_rel_l2_max']:.2e}")
         path = f"parallel_{name}_{mode}"
-        counts_by_path[path] = ranks[0][mode]["launches"]
+        counts_by_path[path] = {k: v for k, v in
+                                ranks[0][mode]["launches"].items()
+                                if k != "variants"}
         print(f"{path}: loss {got['loss']} (largest rel. difference to "
               f"plain {max(rel):.2e}), first step's gradient rel-L2 max "
               f"{got['grad_rel_l2_max']:.2e}, step event ms "
@@ -2174,6 +2227,195 @@ def _parallel_train_cli(root, dataset):
     return counts
 
 
+# phase 20: spatial parallelism (``parallel.sp``) on both configs at full
+# width, SP_STEPS steps from the seeded weights, first in f32 (cuDNN's TF32
+# convs, as phase 19) then in bf16, each against the one-rank step of its
+# precision
+SP_STEPS = 2
+SP_CONFIGS = (("foc_dec_amos", 0), ("swin_fpn_visceral",
+                                    SWIN_WINDOW_LAUNCHES))
+SP_PRECISIONS = ("float32", "bfloat16")
+# bf16's first-step loss against the one-rank bf16 step: five bf16
+# half-ulps (2^-9 each), as PERF.md section 6 argues
+SP_BF16_LOSS_RTOL = 5 * 2.0 ** -9
+# each precision's kernel variants: the f32 kernels, or the wgmma ones
+SP_VARIANTS = {"float32": ({"fma"}, {"fma"}),
+               "bfloat16": ({"fold", "wide"}, {"wg"})}
+
+
+def _sp_run(root, name, cfg, windows, two_cards):
+    """Phase 20's ranks on one config: the plain one-rank step, then sp over
+    two ranks (two cards over NCCL, else two processes sharing the card
+    over gloo), in each precision; checks every rank's launches and
+    variants and the bounds, prints a line a precision; returns {path:
+    rank 0's counts}."""
+    from transoar_tpu_torch.data.dataset import TransoarDataset
+
+    base = Path(root) / "sp" / name
+    out = base / "ranks"
+    out.mkdir(parents=True)
+    data = TransoarDataset(cfg, "train", data_dir=Path(root) / "dataset")
+    cases = [data[i % len(data)] for i in range(SP_STEPS * BATCH)]
+    np.savez(base / "batches.npz",
+             image=np.stack([c[0] for c in cases]).reshape(
+                 SP_STEPS, BATCH, *cases[0][0].shape),
+             seg=np.stack([c[1] for c in cases]).reshape(
+                 SP_STEPS, BATCH, *cases[0][1].shape))
+    device, backend = ("cuda", "nccl") if two_cards else ("cuda:0", "gloo")
+    (out / "spec.json").write_text(json.dumps({
+        "config": json.loads(json.dumps(cfg, default=lambda o: o.tolist())),
+        "device": device, "backend": backend, "modes": ["sp"],
+        "steps": SP_STEPS, "precisions": list(SP_PRECISIONS)}))
+    t0 = time.perf_counter()
+    _run_ranks([sys.executable, str(Path(__file__).resolve()),
+                "--parallel-rank", str(out / "spec.json"), str(out)], 2,
+               Path(__file__).parent)
+    secs = time.perf_counter() - t0
+    results = json.loads((out / "results.json").read_text())
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(2)]
+    want = _want_training(SP_STEPS, 0, windows)
+    counts, failures = {}, []
+    for precision in SP_PRECISIONS:
+        tag = f"_{precision}"
+        plain, got = results["plain" + tag], results["sp" + tag]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                   plain["loss"])]
+        conv, window = SP_VARIANTS[precision]
+        for r, facts in enumerate(ranks):
+            counted = facts["sp" + tag]["launches"]
+            launched = {k: v for k, v in counted.items()
+                        if v and k != "variants"}
+            v = counted["variants"]
+            if launched != want or set(v["forward"]) != conv or \
+                    set(v["dw"]) != conv or \
+                    set(v["window"]) != (window if windows else set()) or \
+                    set(v["window_bwd"]) != (window if windows else set()):
+                failures.append(f"sp {name} {precision} rank {r} launched "
+                                f"{launched} by variant {v}, want {want} on "
+                                f"{sorted(conv)} / {sorted(window)}")
+        if precision == "float32":
+            bad = max(rel) > PARALLEL_LOSS_RTOL or \
+                got["grad_rel_l2_max"] > PARALLEL_GRAD_REL
+        else:  # steps after an update drift apart in bf16 (PERF.md)
+            bad = rel[0] > SP_BF16_LOSS_RTOL
+        if bad:
+            failures.append(
+                f"sp {name} {precision}: loss {got['loss']} vs one rank "
+                f"{plain['loss']} (rel {rel}), gradient rel-L2 "
+                f"{got['grad_rel_l2_max']:.2e}")
+        path = f"sp_{name}_{precision}"
+        counts[path] = {k: v for k, v in
+                        ranks[0]["sp" + tag]["launches"].items()
+                        if k != "variants"}
+        where = "two cards" if two_cards else (
+            "two processes sharing one card: correctness and memory, not "
+            "scaling")
+        print(f"{path}: sp 2 over {backend} ({where}); loss {got['loss']} "
+              f"(one rank "
+              f"{plain['loss']}, rel. difference {rel}), first step's "
+              f"gradient rel-L2 max {got['grad_rel_l2_max']:.2e}, step event "
+              f"ms {got['step_event_ms']} (one rank "
+              f"{plain['step_event_ms']}), peak GiB per rank "
+              f"{[round(f['sp' + tag]['peak_gib'], 2) for f in ranks]} (one "
+              f"rank {plain['peak_gib']:.2f}); launches per rank "
+              f"{[f['sp' + tag]['launches'] for f in ranks]}; {secs:.1f} s "
+              f"for both precisions", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return counts
+
+
+def _sp_train_cli(root, model, dataset, cases, windows, two_cards):
+    """``python -m torch.distributed.run -m transoar_tpu_torch.train`` on
+    ``model`` as shipped with ``parallel.sp: 2`` for one epoch of
+    ``cases`` = (train, val) cases (through ``_train_cli_rank`` to count
+    the kernels; two processes sharing one card talk over gloo); returns
+    {path: rank 0's counts}."""
+    import yaml
+
+    from transoar_tpu_torch.presets import model_config
+
+    name = f"{model}_sp"
+    cfg = model_config(model, batch_size=BATCH)
+    cfg["parallel"].update(dp=-1, sp=2)
+    cfg.update(experiment_name=name, dataset=dataset, debug_mode=False)
+    cfg["trainer"].update(epochs=1, val_interval=1)
+    for key in ("bbox_properties", "labels", "foreground_voxel_statistics"):
+        cfg.pop(key, None)  # the dataset's data_info.json provides them
+    path = Path(root) / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(json.loads(json.dumps(
+        cfg, default=lambda o: o.tolist()))))
+    out = Path(root) / "sp" / f"cli_{model}"
+    out.mkdir(parents=True)
+    rank_flag, device = (("--train-cli-rank", "cuda") if two_cards
+                         else ("--train-cli-rank-gloo", "cuda:0"))
+    t0 = time.perf_counter()
+    _run_ranks([sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node=2", f"--master_port={_free_port()}",
+                str(Path(__file__).resolve()), rank_flag, str(out),
+                "--config", str(path), "--data_dir",
+                str(Path(root) / "dataset"), "--device", device], None, root)
+    secs = time.perf_counter() - t0
+    ranks = [json.loads((out / f"cli.rank{r}.json").read_text())
+             for r in range(2)]
+    steps = cases[0] // BATCH
+    want = _want_training(steps, 2 * (cases[1] // BATCH), windows)
+    for r, record in enumerate(ranks):
+        launched = {k: v for k, v in record["launches"].items() if v}
+        if launched != want or not np.isfinite(record["train_total"]).all():
+            fail(f"sp train CLI {model} rank {r}: launched {launched}, want "
+                 f"{want}; losses {record['train_total']}")
+    saved = torch.load(Path(root) / "runs" / name / "model_last.pt",
+                       map_location="cpu", weights_only=True)
+    if any(k.startswith("module.") or type(v) is not torch.Tensor
+           for k, v in saved["model"].items()):
+        fail(f"sp train CLI {model}: the checkpoint is not the plain "
+             f"layout")
+    log = (Path(root) / "logs" / "train.log").read_text()
+    if "mesh dp 1 x sp 2 x tp 1, DDP" not in log:
+        fail("sp train CLI: the log names no dp 1 x sp 2 mesh")
+    path = "sp_train_cli" if model == "foc_dec_amos" else \
+        "sp_swin_train_cli"
+    print(f"{path}: torchrun --nproc_per_node=2 -m "
+          f"transoar_tpu_torch.train, {model} as shipped with "
+          f"parallel.sp: 2 ({'NCCL' if two_cards else 'gloo, one card'}), "
+          f"{steps} steps + 2 validations in {secs:.1f} s; losses "
+          f"{ranks[0]['train_total']}, step event ms "
+          f"{ranks[0]['step_event_ms']}, peak GiB per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]}; launches per rank "
+          f"{want}", flush=True)
+    return {path: ranks[0]["launches"]}
+
+
+def phase_sp(root, datasets):
+    """Spatial parallelism (``transoar_tpu_torch/parallel/sp.py``) at full
+    width, batch 2, on the datasets of phases 10 and 13: foc_dec_amos (the
+    packed band conv, kernels 1-3, on each rank's half of S0) and
+    swin_fpn_visceral (kernels 1-3 and the window attention, 4-5, on the
+    sharded Swin stages 2-4; stage 5 gathered), SP_STEPS steps at sp 2
+    against the one-rank step in f32 and in bf16, then the train CLI with
+    ``parallel.sp: 2`` on each. Returns {path: counts}."""
+    from transoar_tpu_torch.presets import flagship_config, swin_fpn_config
+    from transoar_tpu_torch.utils.io import load_json
+
+    two_cards = torch.cuda.device_count() >= 2
+    counts = {}
+    for (name, windows), make in zip(SP_CONFIGS, (flagship_config,
+                                                  swin_fpn_config)):
+        cfg = make(batch_size=BATCH)
+        cfg.update(load_json(Path(root) / "dataset" / datasets[name]
+                             / "data_info.json"))
+        cfg["dataset"] = datasets[name]
+        cfg["augmentation"]["use_augmentation"] = False  # the step windows
+        counts.update(_sp_run(root, name, cfg, windows, two_cards))
+    for (name, windows), cases in zip(SP_CONFIGS, (
+            (TRAIN_CASES, VAL_CASES), (SWIN_TRAIN_CASES, SWIN_VAL_CASES))):
+        counts.update(_sp_train_cli(root, name, datasets[name], cases,
+                                    windows, two_cards))
+    return counts
+
+
 def _entry(name, replaces, launches, rows, path_rows,
            source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
@@ -2238,6 +2480,7 @@ def main():
         paths.update(retina_counts)
         family_results.update(retina_results)
         paths.update(phase_parallel(root, datasets["foc_dec_amos"]))
+        paths.update(phase_sp(root, datasets))
     _loop_summary(loop_results)
     _family_summary(family_results)
     src = "transoar_tpu/ops/pallas/packed_conv.py"
@@ -2291,5 +2534,7 @@ if __name__ == "__main__":
         _parallel_rank(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--train-cli-rank"]:
         _train_cli_rank(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--train-cli-rank-gloo"]:  # phase 20, one card
+        _train_cli_rank(sys.argv[2], sys.argv[3:], "gloo")
     else:
         main()

@@ -99,3 +99,66 @@ def test_decoder_stack(rng, use_roi):
     ours = port(t(src), t(qe), t(pos))
     assert ours.shape == (2, 2, ORGANS * QPO, C)
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), **TOL)
+
+
+def test_decoder_remat_dense_path(rng):
+    """``neck.remat`` (the JAX default: on for the dense path) runs each
+    layer under checkpoint: the dense path's gradients are the same with
+    remat on and off, and match the JAX decoder's (which rematerialises);
+    in training with dropout the recompute replays the forward's masks."""
+    import jax
+
+    bias, _ = _neck_inputs(rng)
+    cfg = {"hidden_dim": C, "nheads": 4, "num_organs": ORGANS,
+           "dim_feedforward": 32, "dec_layers": 2, "dropout": 0.0}
+    src = rng.normal(size=(2, *GRID, C)).astype(np.float32)
+    pos = rng.normal(size=(2, *GRID, C)).astype(np.float32)
+    qe = rng.normal(size=(ORGANS * QPO, 2 * C)).astype(np.float32)
+    jmod = jfd.FocusedDecoder(cfg, attn_bias=bias, roi=None,
+                              dtype=jnp.float32)
+    p = init_params(jmod, src, qe, pos)
+
+    def loss(params, s):
+        return jnp.square(jmod.apply({"params": params}, s, qe, pos)[0]).sum()
+
+    jgrads, jsrc = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, src)
+    sd, want = {}, {}
+    for i in range(2):
+        sd.update({f"decoder.layers.{i}.{k}": v for k, v in
+                   bridge.decoder_layer(p[f"layer{i}"]).items()})
+        want.update({f"decoder.layers.{i}.{k}": v for k, v in
+                     bridge.decoder_layer(jax.tree.map(
+                         np.asarray, jgrads[f"layer{i}"])).items()})
+    runs = []
+    for remat in (None, False):
+        layer_cfg = cfg if remat is None else dict(cfg, remat=remat)
+        port = load(tfd.FocusedDecoder(layer_cfg, bias, None,
+                                       dtype=torch.float32), sd)
+        assert port.remat == (remat is None)
+        x = t(src).requires_grad_()
+        port(x, t(qe), t(pos)).square().sum().backward()
+        runs.append((x.grad, {n: q.grad for n, q in
+                              port.named_parameters()}))
+    (x1, g1), (x2, g2) = runs
+    torch.testing.assert_close(x1, x2, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(x1.numpy(), np.asarray(jsrc), rtol=1e-4,
+                               atol=1e-5)
+    for name, grad in g2.items():
+        torch.testing.assert_close(g1[name], grad, rtol=1e-6, atol=1e-7,
+                                   msg=name)
+        np.testing.assert_allclose(g1[name].numpy(), np.asarray(want[name]),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    # training with dropout: the recompute draws the forward's masks
+    drop = []
+    for remat in (True, False):
+        port = load(tfd.FocusedDecoder(dict(cfg, dropout=0.3, remat=remat),
+                                       bias, None, dtype=torch.float32), sd)
+        port.train()
+        gen = torch.Generator().manual_seed(4)
+        x = t(src).requires_grad_()
+        out = port(x, t(qe), t(pos), gen)
+        out.square().sum().backward()
+        drop.append((out.detach(), x.grad, gen.get_state()))
+    torch.testing.assert_close(drop[0][0], drop[1][0])
+    torch.testing.assert_close(drop[0][1], drop[1][1])
+    assert torch.equal(drop[0][2], drop[1][2])

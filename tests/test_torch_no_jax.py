@@ -46,6 +46,7 @@ for name in ("transoar_tpu_torch.predict", "transoar_tpu_torch.train",
              "transoar_tpu_torch.models.retina",
              "transoar_tpu_torch.ops.nms",
              "transoar_tpu_torch.parallel.mesh",
+             "transoar_tpu_torch.parallel.sp",
              "transoar_tpu_torch.parallel.tp",
              "transoar_tpu_torch.parallel.fsdp"):
     assert name in names, name

@@ -108,10 +108,11 @@ def one_process(case):
         lr=cfg["trainer"]["lr"])
 
 
-def jax_mesh_step(cfg, params, image, seg):
-    """The JAX package's train step on a dp-2 CPU mesh; the Focused
-    Decoder's fixed 0.1 output dropout is set to 0 (the port steps in
-    ``eval()``). Returns (losses, new params as a port state_dict)."""
+def jax_mesh_step(cfg, params, image, seg, dp=2, sp=1):
+    """The JAX package's train step on a ``dp x sp`` CPU mesh (dp 2 by
+    default); the Focused Decoder's fixed 0.1 output dropout is set to 0
+    (the port steps in ``eval()``). Returns (losses, new params as a port
+    state_dict)."""
     import flax.linen as flax_nn
     import jax
 
@@ -130,7 +131,8 @@ def jax_mesh_step(cfg, params, image, seg):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jfd, "nn", no_drop)
         jmodel = build_transoarnet(cfg)
-        mesh = jmesh.make_mesh(dp=2, devices=jax.devices()[:2])
+        mesh = jmesh.make_mesh(dp=dp, sp=sp,
+                               devices=jax.devices()[:dp * sp])
         rep = jmesh.replicated(mesh)
         state = TrainState.create(apply_fn=jmodel.apply, params=params,
                                   tx=jopt(cfg, 1))
@@ -487,8 +489,7 @@ def test_one_process_builds_nothing(monkeypatch, tmp_path):
     trainer = Trainer(cfg, model, [], [], tmp_path, "cpu")
     assert trainer._model is model and trainer._layout is None
     assert not any(k.startswith("module.") for k in model.state_dict())
-    with pytest.raises(NotImplementedError, match="sp"):
-        mesh_lib.make_mesh(dp=1, sp=2)
+    assert all(getattr(m, "sp", None) is None for m in model.modules())
 
 
 def test_train_cli_under_torchrun(tmp_path):
@@ -541,8 +542,8 @@ def test_train_cli_under_torchrun(tmp_path):
     assert len(last["optimizer"]["state"]) == len(last["model"])
     assert {int(st["step"]) for st in last["optimizer"]["state"].values()} \
         == {2}
-    assert "mesh dp 1 x tp 2, FSDP2" in (tmp_path / "logs" /
-                                        "train.log").read_text()
+    assert "mesh dp 1 x sp 1 x tp 2, FSDP2" in (tmp_path / "logs" /
+                                               "train.log").read_text()
 
     cwd = os.getcwd()
     os.chdir(tmp_path)

@@ -9,7 +9,10 @@ the one-process step on the same card.
 - two ranks sharing the card over gloo (NCCL refuses two ranks on one
   device): dp 2 (DDP) and tp 2. FSDP2's reduce-scatter has no gloo
   implementation for CUDA tensors, so its two-rank case runs on the CPU
-  (``tests/test_torch_parallel.py``).
+  (``tests/test_torch_parallel.py``);
+- two ranks sharing the card over gloo at sp 2: the spatial axis's
+  primitives (f64 gradchecks) and the tiny flagship's step on each rank's
+  half of S0 (``tests/test_torch_sp.py`` holds the CPU cases).
 
 Tolerances: the loss within rtol 2e-4, each parameter within atol 5e-5
 where the one-process gradient is above float noise, within the learning
@@ -35,6 +38,8 @@ from transoar_tpu_torch.training.trainer import make_train_step
 pytestmark = pytest.mark.cuda
 
 BATCH = 2
+# the band conv's wrappers (kernels 1-3) among the ranks' counts
+_BAND_CONV = ("packed_conv", "packed_conv_dx", "packed_conv_dw")
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +112,7 @@ def test_world1_nccl_under_each_wrapper(setup):
     for name, (record, ranks) in results(cases, 1, out).items():
         _check(record, ref, cfg["trainer"]["lr"])
         launches = ranks[0]["launches"]
-        assert all(n > 0 for n in launches.values()), (name, launches)
+        assert all(launches[k] > 0 for k in _BAND_CONV), (name, launches)
     assert results(cases, 1, out)["tp1"][1][0]["tp_sharded"] > 0
 
 
@@ -119,3 +124,23 @@ def test_two_ranks_share_the_card_over_gloo(setup):
     ref = _one_process(cases[0])
     for name, (record, _) in results(cases, 2, out).items():
         _check(record, ref, cfg["trainer"]["lr"])
+
+
+def test_sp_two_ranks_share_the_card_over_gloo(setup):
+    """sp 2 on the card: f64 gradchecks of the halo, gather / scatter,
+    all-reduce and roll (``parallel/sp.py``) on CUDA tensors over gloo,
+    and the tiny flagship's step with each rank holding half of S0 against
+    the one-process step, both ranks launching kernels 1-3."""
+    out, cfg, base = setup
+    cases = [dict(name="sp_primitives_card", kind="sp_primitives"),
+             dict(base, name="sp2_card", sp=2)]
+    wait(launch(cases, 2, out, device="cuda:0", backend="gloo"))
+    done = results(cases, 2, out)
+    record = done["sp_primitives_card"][0]
+    assert all(record["gradcheck"].values()), record["gradcheck"]
+    assert max(record["forward_err"].values()) < 1e-12
+    record, ranks = done["sp2_card"]
+    _check(record, _one_process(cases[1]), cfg["trainer"]["lr"])
+    for facts in ranks:
+        assert facts["sp_plan"] == ["sharded"] * 4
+        assert all(facts["launches"][k] > 0 for k in _BAND_CONV)

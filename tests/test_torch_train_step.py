@@ -292,3 +292,54 @@ def test_grad_accumulation_matches_optax(accum, clip):
                 err_msg=f"call {call}, {name}")
     assert applied == ([False] * (accum - 1) + [True]) * 4
     assert tstate.current_lrs(optimizer)["neck"] == pytest.approx(1e-3)
+
+
+def test_grad_accumulation_resumes_mid_way(tmp_path):
+    """A run of ``grad_accum_steps`` 3 checkpointed after 4 calls (one call
+    into an accumulation) and resumed from it takes the same updates as the
+    run without the interruption: the checkpoint holds the count and the
+    partial mean (without them the resumed run would update a call
+    late)."""
+    from transoar_tpu_torch.training import checkpoints as ckpt_lib
+
+    cfg = {"trainer": {"lr": 1e-2, "lr_backbone": 3e-3, "weight_decay": 0.1,
+                       "lr_drop": 2, "clip_max_norm": 0.5,
+                       "grad_accum_steps": 3}}
+    rng = np.random.default_rng(7)
+    init = {"backbone": rng.normal(size=(3, 4)), "neck": rng.normal(size=5)}
+    grads = [{k: torch.from_numpy(3 * rng.normal(size=v.shape)).float()
+              for k, v in init.items()} for _ in range(7)]
+
+    def run(calls, resume=None):
+        model = torch.nn.Module()
+        for name, value in init.items():
+            part = torch.nn.Module()
+            part.w = torch.nn.Parameter(torch.from_numpy(value).float())
+            model.add_module(f"_{name}", part)
+        optimizer, scheduler = tstate.make_optimizer(model, cfg, 2)
+        update = tstate.UpdateRule(optimizer, scheduler,
+                                   list(model.parameters()), clip=0.5,
+                                   accum=3)
+        if resume is not None:
+            ckpt_lib.restore_checkpoint(resume, model, optimizer, scheduler,
+                                        update=update)
+        for g in calls:
+            optimizer.zero_grad(set_to_none=True)
+            for name in init:
+                getattr(model, f"_{name}").w.grad = g[name].clone()
+            update()
+        return model, optimizer, scheduler, update
+
+    whole = run(grads)[0]
+    model, optimizer, scheduler, update = run(grads[:4])
+    assert update.mini_step == 1
+    path = ckpt_lib.save_training_checkpoint(
+        tmp_path, "model_last", model, optimizer, scheduler, 1, 0.0,
+        update=update)
+    saved = torch.load(path, weights_only=True)["accumulation"]
+    assert saved["mini_step"] == 1 and set(saved["mean"]) == {
+        "_backbone.w", "_neck.w"}
+    resumed = run(grads[4:], resume=path)[0]
+    for name, p in whole.named_parameters():
+        torch.testing.assert_close(resumed.get_parameter(name), p, rtol=0,
+                                   atol=0, msg=name)

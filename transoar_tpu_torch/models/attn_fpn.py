@@ -25,6 +25,14 @@ the up-convs and ``out0`` at ``start_channels``, full resolution) for the
 seg head; with ``use_decoder_attn`` the ``def_attn.feature_levels`` are
 refined by deformable self-attention (``_decoder._refine``,
 ``models/def_attn.DecoderDefAttnBlock``) and replace their P-levels.
+
+Under spatial parallelism (``parallel/sp.py``, ``apply_sp``) the encoder
+runs its sharded stages on the rank's block of S0 and gathers before the
+first gathered stage (``gather_from``); the decoder runs each level on the
+block where its stage was sharded, takes its slice of a gathered level's
+up-path (``sp.scatter``) and gathers the refine's levels before the
+refine. ``AttnFPN.whole`` gives a caller a decoder output (or a tensor
+computed from it position by position) whole.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from transoar_tpu_torch.models.def_attn import DecoderDefAttnBlock
 from transoar_tpu_torch.models.layers import EncoderCnnBlock
 from transoar_tpu_torch.models.swin import EncoderSwinBlock
 from transoar_tpu_torch.ops.conv3d import Conv3d, ConvTranspose3d
+from transoar_tpu_torch.parallel import sp as sp_lib
 
 
 def required_stages(config) -> list[int]:
@@ -60,6 +69,9 @@ class Encoder(nn.Module):
     def __init__(self, config: Dict[str, Any], first_out: int = 0,
                  dtype: torch.dtype = torch.bfloat16, input_shape=None):
         super().__init__()
+        self.config = config
+        self.input_shape = input_shape
+        self.sp, self.gather_from = None, None
         self.first_out = first_out
         self.remat = bool(config.get("remat", True))
         start = config["start_channels"]
@@ -104,6 +116,8 @@ class Encoder(nn.Module):
         """``generator`` draws the Swin stages' DropPath masks."""
         outputs = {}
         for s, stage in enumerate(self._stages):
+            if self.sp is not None and s == self.gather_from:
+                x = sp_lib.gather(x, self.sp)
             if s >= self.swin_from:
                 x = stage(x, generator)
             elif self.remat and torch.is_grad_enabled():
@@ -124,6 +138,7 @@ class Decoder(nn.Module):
     def __init__(self, config: Dict[str, Any],
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.sp, self.sharded = None, frozenset()
         num_stages = config["num_stages"]
         fpn = config["fpn_channels"]
         start = config["start_channels"]
@@ -167,6 +182,9 @@ class Decoder(nn.Module):
         for j in reversed(range(len(self.lateral_stages))):
             s = self.lateral_stages[j]
             x = self._lateral[j](enc_out[f"C{s}"])
+            if up is not None and s in self.sharded \
+                    and s + 1 not in self.sharded:
+                up = sp_lib.scatter(up, self.sp)
             x = x if up is None else x + up
             top_down[s] = x
             if s > self.earliest:
@@ -174,10 +192,17 @@ class Decoder(nn.Module):
         outputs = {f"P{s}": out(top_down[s])
                    for s, out in zip(self.stages_needed, self._out)}
         if self.refine_levels:
-            refined = self._refine([outputs[lv] for lv in self.refine_levels],
-                                   generator)
+            refined = self._refine(
+                [sp_lib.gather(outputs[lv], self.sp)
+                 if int(lv[1:]) in self.sharded else outputs[lv]
+                 for lv in self.refine_levels], generator)
             outputs.update(zip(self.refine_levels, refined))
         return outputs
+
+    def is_sharded(self, level: str) -> bool:
+        """Whether the output ``level`` is the rank's block (sp)."""
+        return int(level[1:]) in self.sharded and \
+            level not in self.refine_levels
 
 
 class AttnFPN(nn.Module):
@@ -194,3 +219,11 @@ class AttnFPN(nn.Module):
                 generator: torch.Generator | None = None
                 ) -> Dict[str, torch.Tensor]:
         return self._decoder(self._encoder(x, generator), generator)
+
+    def whole(self, x: torch.Tensor, level: str) -> torch.Tensor:
+        """``x``, the decoder's output ``level`` or a tensor computed from it
+        position by position, whole: gathered over sp where the level is
+        the rank's block."""
+        if self._decoder.is_sharded(level):
+            return sp_lib.gather(x, self._decoder.sp)
+        return x

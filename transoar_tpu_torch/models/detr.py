@@ -34,37 +34,15 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from transoar_tpu_torch.models.def_attn import MSDeformAttn
 from transoar_tpu_torch.models.hungarian import MatchClock, hungarian_match
 from transoar_tpu_torch.models.layers import (FFN, LayerNorm, Linear,
                                               MultiHeadSelfAttention,
-                                              dropout)
+                                              checkpoint_layer, dropout)
 from transoar_tpu_torch.utils.boxes import (box_cxcyczwhd_to_xyzxyz,
                                             generalized_box_iou_elementwise,
                                             generalized_box_iou_pairwise)
-
-
-def _checkpoint(layer: nn.Module, generator, *args):
-    """``layer(*args, generator)`` under ``torch.utils.checkpoint``; the
-    recompute draws from a generator reset to the state the forward
-    started from, so it sees the forward's dropout masks, and
-    ``generator`` ends where the forward left it."""
-    if generator is None:
-        return checkpoint(layer, *args, None, use_reentrant=False)
-    start, end = generator.get_state(), []
-
-    def run(*a):
-        g = torch.Generator(device=generator.device)
-        g.set_state(start)
-        out = layer(*a, g)
-        end.append(g.get_state())
-        return out
-
-    out = checkpoint(run, *args, use_reentrant=False)
-    generator.set_state(end[0])
-    return out
 
 
 class DETRDecoderLayer(nn.Module):
@@ -132,7 +110,8 @@ class DETRDecoder(nn.Module):
                 tgt, weights = layer(tgt, query_pos, src, pos, generator,
                                      True)
             elif remat:
-                tgt = _checkpoint(layer, generator, tgt, query_pos, src, pos)
+                tgt = checkpoint_layer(layer, generator, tgt, query_pos, src,
+                                       pos)
             else:
                 tgt = layer(tgt, query_pos, src, pos, generator)
             intermediate.append(tgt)

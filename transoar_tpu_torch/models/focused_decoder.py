@@ -18,7 +18,11 @@ originals.
   (``self_attn``, ``norm2``, ``cross_attn``, ``norm1``, ``linear1``,
   ``linear2``, ``norm3``).
 - ``FocusedDecoder`` returns the stacked outputs of every layer
-  ``[L, B, Q, C]`` for the auxiliary heads.
+  ``[L, B, Q, C]`` for the auxiliary heads. With ``neck.remat`` (the JAX
+  default: on for the dense path, whose f32 logits over every token would
+  be kept for the backward, off with RoI attention) each layer runs under
+  ``torch.utils.checkpoint`` when grad is enabled, the recompute replaying
+  the forward's dropout masks (``layers.checkpoint_layer``).
 - Dropout, in ``train()`` mode only, with masks from the generator passed
   to ``forward``: ``neck.dropout`` on the self-attention probabilities,
   after self- and cross-attention and twice in the FFN; the FocusedAttn
@@ -35,7 +39,8 @@ import torch
 import torch.nn as nn
 
 from transoar_tpu_torch.models.layers import (LayerNorm, Linear,
-                                              MultiHeadSelfAttention, dropout,
+                                              MultiHeadSelfAttention,
+                                              checkpoint_layer, dropout,
                                               feed_forward)
 
 MASKED_BIAS = -1e9  # additive bias for voxels outside the organ's attn area
@@ -242,6 +247,7 @@ class FocusedDecoder(nn.Module):
                 np.asarray(idx, np.int64)), persistent=False)
             self.register_buffer("roi_valid", torch.as_tensor(
                 np.asarray(valid, bool)), persistent=False)
+        self.remat = bool(config.get("remat", not self.use_roi))
 
     def forward(self, src: torch.Tensor, query_embed: torch.Tensor,
                 pos: torch.Tensor,
@@ -261,11 +267,16 @@ class FocusedDecoder(nn.Module):
         roi = (self.roi_idx, self.roi_valid) if self.use_roi else None
 
         layers = self.decoder["layers"]
+        remat = self.remat and torch.is_grad_enabled()
         intermediate = []
         for i, layer in enumerate(layers):
             last = return_weights and i == len(layers) - 1
-            tgt = layer(tgt, query_pos, src, pos, self.attn_bias, roi,
-                        generator, last)
+            if remat and not last:
+                tgt = checkpoint_layer(layer, generator, tgt, query_pos, src,
+                                       pos, self.attn_bias, roi)
+            else:
+                tgt = layer(tgt, query_pos, src, pos, self.attn_bias, roi,
+                            generator, last)
             if last:
                 tgt, cross, self_weights = tgt
             intermediate.append(tgt)

@@ -17,6 +17,9 @@ collectives; the head count of an attention is then the local one, the
 projected width over the head dim. Dropout on a sharded activation draws
 the mask of the whole tensor and keeps the rank's slice, so every tp rank
 draws alike and keeps the masks one process would give those units.
+
+Under spatial parallelism (``parallel/sp.py``) ``InstanceNorm`` on the
+rank's block of S0 (its ``sp``) sums its statistics over the sp ranks.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from transoar_tpu_torch.ops.conv3d import Conv3d, pack_depth, unpack_depth
+from transoar_tpu_torch.parallel import sp as sp_lib
 from transoar_tpu_torch.parallel import tp as tp_lib
 
 
@@ -65,6 +70,27 @@ def drop_path(x: torch.Tensor, p: float,
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
+def checkpoint_layer(layer: nn.Module, generator, *args):
+    """``layer(*args, generator)`` under ``torch.utils.checkpoint``; the
+    recompute draws from a generator reset to the state the forward
+    started from, so it sees the forward's dropout masks, and
+    ``generator`` ends where the forward left it."""
+    if generator is None:
+        return checkpoint(layer, *args, None, use_reentrant=False)
+    start, end = generator.get_state(), []
+
+    def run(*a):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = layer(*a, g)
+        end.append(g.get_state())
+        return out
+
+    out = checkpoint(run, *args, use_reentrant=False)
+    generator.set_state(end[0])
+    return out
+
+
 def _xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
                      generator: torch.Generator | None) -> None:
     bound = math.sqrt(6.0 / (fan_in + fan_out))
@@ -80,7 +106,8 @@ class InstanceNorm(nn.Module):
     in f32, folded into one multiply-add in the compute dtype. With
     ``packs`` > 1 (depth-packed channels ``[..., packs*C]``) the statistics
     also aggregate across the pack blocks, which are depth slices of the same
-    channel.
+    channel. With ``sp`` (the rank's equal block of S0) the two means are
+    averaged over the sp ranks (one all-reduce), before the pack fold.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -88,6 +115,7 @@ class InstanceNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.sp = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
 
@@ -102,6 +130,9 @@ class InstanceNorm(nn.Module):
         mean = xf.mean(dims)
         mean2 = xf.square().mean(dims)
         del xf
+        if self.sp is not None:
+            mean, mean2 = (sp_lib.all_reduce(torch.stack([mean, mean2]),
+                                             self.sp) / self.sp.size).unbind()
         if packs > 1:
             mean = mean.view(B, packs, C).mean(1)
             mean2 = mean2.view(B, packs, C).mean(1)

@@ -15,7 +15,9 @@ dense anchors, shared conv towers, the focal criterion and the NMS decode.
   channels ``k * C + c`` of a voxel flattened to anchor ``voxel * K + k``;
   with ``use_seg_proxy_loss`` also ``pred_seg`` from a 1x1x1 ``_seg_head``
   on P0 (Retina U-Net). ``retina.tower_conv`` picks an XLA lowering in the
-  JAX package and is ignored here.
+  JAX package and is ignored here. Under spatial parallelism
+  (``parallel/sp.py``) the towers run on the gathered levels, replicated
+  over sp, and ``pred_seg`` is gathered after the seg head.
 - ``RetinaCriterion``: max-IoU assignment against the present GT boxes
   (positive >= ``pos_iou``, negative < ``neg_iou``, the rest ignored),
   sigmoid focal loss over the valid anchors, L1 on the encoded deltas and
@@ -170,14 +172,15 @@ class RetinaNet(nn.Module):
         [B, S0, S1, S2, K]; all f32."""
         feats = self._backbone(x, generator)
         B = x.shape[0]
-        logits = [self._cls_tower(feats[lv]).reshape(B, -1, self.num_classes)
-                  for lv in self.levels]
-        deltas = [self._reg_tower(feats[lv]).reshape(B, -1, 6)
-                  for lv in self.levels]
+        levels = [self._backbone.whole(feats[lv], lv) for lv in self.levels]
+        logits = [self._cls_tower(f).reshape(B, -1, self.num_classes)
+                  for f in levels]
+        deltas = [self._reg_tower(f).reshape(B, -1, 6) for f in levels]
         out = {"anchor_logits": torch.cat(logits, 1).float(),
                "anchor_deltas": torch.cat(deltas, 1).float()}
         if hasattr(self, "_seg_head"):
-            out["pred_seg"] = self._seg_head(feats["P0"]).float()
+            out["pred_seg"] = self._backbone.whole(
+                self._seg_head(feats["P0"]).float(), "P0")
         return out
 
 

@@ -25,6 +25,13 @@ kept on the device. Parameter names follow the reference ``state_dict``
 (``blocks.{j}.norm1``, ``attn.relative_position_bias_table``, ``attn.qkv``,
 ``attn.proj``, ``mlp.fc1``, ``mlp.fc2``, ``downsample.norm``,
 ``downsample.reduction``).
+
+Under spatial parallelism (``parallel/sp.py``) a sharded stage's blocks
+(their ``sp``) hold the rank's block of S0, a whole number of windows
+(``sp_plan``): the window is clamped on the global extent, the cyclic
+shift over S0 is ``sp.roll``, the region labels are the global ones at
+the rank's windows, and S0 needs no end pad. The merge is local on the
+block's even extent.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from transoar_tpu_torch.models.layers import (InstanceNorm, LayerNorm,
 from transoar_tpu_torch.ops.conv3d import Conv3d
 from transoar_tpu_torch.ops.kernels.window_attention import \
     fused_window_attention
+from transoar_tpu_torch.parallel import sp as sp_lib
 
 
 def effective_window(spatial, window_size, shift_size):
@@ -119,11 +127,15 @@ def _constant(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _regions(padded_shape, ws, ss, device: torch.device) -> torch.Tensor:
+def _regions(padded_shape, ws, ss, device: torch.device,
+             part=(0, 1)) -> torch.Tensor:
     """Region labels on the device: [nW, N] when shifted, else one zero row
-    [1, N] (nothing masked)."""
+    [1, N] (nothing masked). ``part`` = (rank, ranks): the rank's equal
+    share of the windows, which are S0-major."""
     if any(ss):
         labels = shifted_window_regions(padded_shape, ws, ss)
+        n = len(labels) // part[1]
+        labels = labels[part[0] * n:(part[0] + 1) * n]
     else:
         labels = np.zeros((1, int(np.prod(ws))), np.float32)
     return _constant(labels, device)
@@ -204,6 +216,7 @@ class SwinBlock(nn.Module):
         self.window_size = tuple(window_size)
         self.shift = shift
         self.drop_path = float(drop_path)
+        self.sp = None
         self.norm1 = LayerNorm(dim, dtype=dtype)
         # the bias table has the size of the window clamped to the input
         # volume ``spatial`` (the JAX module is built for the window it
@@ -215,31 +228,42 @@ class SwinBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
+    def _roll(self, x: torch.Tensor, shifts) -> torch.Tensor:
+        if self.sp is None:
+            return torch.roll(x, shifts=tuple(shifts), dims=(1, 2, 3))
+        x = sp_lib.roll(x, shifts[0], self.sp)
+        return torch.roll(x, shifts=tuple(shifts[1:]), dims=(2, 3))
+
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """x [B, D, H, W, C]; DropPath masks come from ``generator``."""
+        """x [B, D, H, W, C] (under ``sp`` the rank's block of D); DropPath
+        masks come from ``generator``."""
         B, D, H, W, C = x.shape
+        ranks = 1 if self.sp is None else self.sp.size
         ws, ss = effective_window(
-            (D, H, W), self.window_size,
+            (D * ranks, H, W), self.window_size,
             tuple(w // 2 for w in self.window_size) if self.shift
             else (0, 0, 0))
         if ws != self.attn_window:
             raise ValueError(f"this block was built for a {self.attn_window}"
-                             f" window; a {(D, H, W)} input gives {ws}")
+                             f" window; a {(D * ranks, H, W)} input gives "
+                             f"{ws}")
         rate = self.drop_path if self.training else 0.0
 
         shortcut = x
         x = self.norm1(x)
+        # under sp the block holds whole windows over S0 (``sp_plan``)
         pad = [(ws[i] - x.shape[1 + i] % ws[i]) % ws[i] for i in range(3)]
         x = F.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
         Dp, Hp, Wp = x.shape[1:4]
         if any(ss):
-            x = torch.roll(x, shifts=(-ss[0], -ss[1], -ss[2]), dims=(1, 2, 3))
-        regions = _regions((Dp, Hp, Wp), ws, ss, x.device)
+            x = self._roll(x, [-s for s in ss])
+        part = (0, 1) if self.sp is None else (self.sp.rank, ranks)
+        regions = _regions((Dp * ranks, Hp, Wp), ws, ss, x.device, part)
         x = self.attn(window_partition(x, ws), ws, regions)
         x = window_reverse(x, ws, B, Dp, Hp, Wp)
         if any(ss):
-            x = torch.roll(x, shifts=ss, dims=(1, 2, 3))
+            x = self._roll(x, ss)
         x = shortcut + drop_path(x[:, :D, :H, :W], rate, generator)
         return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
 

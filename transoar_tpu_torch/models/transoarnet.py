@@ -19,6 +19,10 @@ feature levels, ``models/detr.py``). Names follow the reference
   ``pred_seg`` (2 classes under ``fg_bg``, else organs + 1), f32.
 - ``build_model`` builds RetinaNet (``models/retina.py``) for a config with
   a ``retina`` section.
+- Under spatial parallelism (``parallel/sp.py``) the backbone runs on the
+  rank's block of S0; the neck's levels and ``pred_seg`` (the seg head's K
+  channels, not P0) are gathered whole (``AttnFPN.whole``), so the outputs
+  are whole on every sp rank.
 """
 
 from __future__ import annotations
@@ -125,10 +129,12 @@ class TransoarNet(nn.Module):
         query_embed = self._query_embed.weight
         weights, ref = None, None
         if self.neck_name == "def_detr":
-            hs, ref = self._neck([feats[lv] for lv in self.levels],
+            hs, ref = self._neck([self._backbone.whole(feats[lv], lv)
+                                  for lv in self.levels],
                                  query_embed, generator)
         else:
-            src = feats[self.input_level]
+            src = self._backbone.whole(feats[self.input_level],
+                                       self.input_level)
             hs = self._neck(src, query_embed, self._pos_enc(src), generator,
                             return_weights)  # [L, B, Q, C]
             if return_weights:
@@ -140,7 +146,8 @@ class TransoarNet(nn.Module):
             out["aux_logits"] = logits[:-1]
             out["aux_boxes"] = boxes[:-1]
         if hasattr(self, "_seg_head"):
-            out["pred_seg"] = self._seg_head(feats["P0"]).float()
+            out["pred_seg"] = self._backbone.whole(
+                self._seg_head(feats["P0"]).float(), "P0")
         if return_weights and self.neck_name != "def_detr":
             if isinstance(weights, dict):
                 out["attn_weights"] = weights["cross"]

@@ -15,6 +15,15 @@ runs:
   depth slices fold into channels and each KD=3 conv becomes one 3x3 band
   conv, which runs the hand-written kernel ``ops/kernels/packed_conv.py``.
 
+Under spatial parallelism (``parallel/sp.py``; a layer's ``sp``, set by
+``apply_sp``) the input is the rank's block of S0. A conv takes a halo of
+its neighbours' rows over S0 and no padding there: kernel 3, stride 1 a row
+on each side; kernel 3, stride 2 a row below (the local extent even);
+kernel 1 and the kernel 2, stride 2 merge none. The packed chain takes the
+neighbours' edge packed rows where one process takes zeros, so kernels 1-3
+run unchanged on the rank's rows. The transposed conv (kernel == stride)
+is local.
+
 Parameters are f32 and named and shaped as torch's ``nn.Conv3d`` /
 ``nn.ConvTranspose3d``; compute runs in the layer's ``dtype``.
 """
@@ -28,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from transoar_tpu_torch.ops.kernels.packed_conv import packed_conv
+from transoar_tpu_torch.parallel import sp as sp_lib
 
 
 def pack_depth(x: torch.Tensor, pack: int) -> torch.Tensor:
@@ -62,32 +72,39 @@ def _packed_band_kernel(w: torch.Tensor, pack: int,
     return wp
 
 
-def _shift_back(t: torch.Tensor) -> torch.Tensor:
-    """t'[j] = t[j-1] along axis 1 (zero at j=0)."""
+def _shift_back(t: torch.Tensor, sp=None) -> torch.Tensor:
+    """t'[j] = t[j-1] along axis 1 (zero at j=0 of the volume; under ``sp``
+    the previous rank's last row at the block's j=0)."""
+    if sp is not None:
+        return sp_lib.halo(t, 1, 0, sp)[:, :-1]
     return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
 
 
-def _shift_fwd(t: torch.Tensor) -> torch.Tensor:
-    """t'[j] = t[j+1] along axis 1 (zero at j=last)."""
+def _shift_fwd(t: torch.Tensor, sp=None) -> torch.Tensor:
+    """t'[j] = t[j+1] along axis 1 (zero at the volume's last j; under
+    ``sp`` the next rank's first row at the block's last j)."""
+    if sp is not None:
+        return sp_lib.halo(t, 0, 1, sp)[:, 1:]
     return torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], dim=1)
 
 
 def conv3d_packed_chain(xp: torch.Tensor, w: torch.Tensor,
-                        pack: int) -> torch.Tensor:
+                        pack: int, sp=None) -> torch.Tensor:
     """Stride-1 KD=3 conv on packed input [B, Dp, H, W, pack*C] with kernel
     w [3, KH, KW, C, F]; output packed [B, Dp, H, W, pack*F].
 
     The depth halo (one slice each side of a pack) is rebuilt from the packed
     layout: the last C channels of row q-1 and the first C of row q+1, zero at
-    both ends of the volume. Torch-style symmetric padding.
+    both ends of the volume (under ``sp``, the rank's block of rows: the
+    neighbours' rows at its interior ends). Torch-style symmetric padding.
     """
     B, Dp, H, W, PC = xp.shape
     KD, KH, KW, C, Fo = w.shape
     if PC != pack * C or (KD, KH, KW) != (3, 3, 3):
         raise ValueError(f"packed chain: input {tuple(xp.shape)}, kernel "
                          f"{tuple(w.shape)}, pack {pack}")
-    prev = _shift_back(xp[..., (pack - 1) * C:])   # x[pack*q - 1]
-    nxt = _shift_fwd(xp[..., :C])                  # x[pack*(q+1)]
+    prev = _shift_back(xp[..., (pack - 1) * C:], sp)   # x[pack*q - 1]
+    nxt = _shift_fwd(xp[..., :C], sp)                  # x[pack*(q+1)]
     xh = torch.cat([prev, xp, nxt], dim=-1)
     wp = _packed_band_kernel(w, pack, xp.dtype)
     y = packed_conv(xh.reshape(B * Dp, H, W, (pack + 2) * C), wp)
@@ -105,7 +122,8 @@ class Conv3d(nn.Module):
 
     ``forward(x, pack=0)``: with ``pack`` > 0 (kernel 3, stride 1 only) the
     input and output are depth-packed and the conv runs
-    ``conv3d_packed_chain``.
+    ``conv3d_packed_chain``. ``sp``: the rank's block of S0 with halos
+    (module docstring).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -115,8 +133,10 @@ class Conv3d(nn.Module):
         k = kernel_size
         self.stride = (stride,) * 3 if isinstance(stride, int) \
             else tuple(stride)
+        self.kernel_size = k
         self.padding = (k - 1) // 2
         self.dtype = dtype
+        self.sp = None
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                k, k, k))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
@@ -133,13 +153,24 @@ class Conv3d(nn.Module):
             if self.stride != (1, 1, 1):
                 raise ValueError("the packed chain runs stride-1 convs only")
             # [F, C, kd, kh, kw] -> [kd, kh, kw, C, F]
-            out = conv3d_packed_chain(x, w.permute(2, 3, 4, 1, 0), pack)
+            out = conv3d_packed_chain(x, w.permute(2, 3, 4, 1, 0), pack,
+                                      self.sp)
             if self.bias is not None:
                 out = out + self.bias.to(self.dtype).repeat(pack)
             return out
         b = None if self.bias is None else self.bias.to(self.dtype)
+        p = self.padding
+        padding = p
+        if self.sp is not None:
+            # rows of the neighbours in place of the padding over S0: p
+            # below, and above what the last output's window reaches past
+            # the block (a multiple of the stride, ``sp_plan``)
+            hi = max(self.kernel_size - p - self.stride[0], 0)
+            if p or hi:
+                x = sp_lib.halo(x, p, hi, self.sp)
+            padding = (0, p, p)
         out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, self.stride,
-                       self.padding)
+                       padding)
         return out.permute(0, 2, 3, 4, 1)
 
 

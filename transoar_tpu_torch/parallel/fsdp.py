@@ -1,6 +1,8 @@
 """The data-parallel wrappers of the dp axis: ``parallel.fsdp: true`` as
-FSDP2, plain dp as ``DistributedDataParallel``, both over the dp group
-(on top of the tp shards of ``parallel/tp.py``).
+FSDP2, plain dp as ``DistributedDataParallel``, both over the gradient
+group (``Layout.grad_group``: dp, or the flattened ``dp x sp`` under
+spatial parallelism, ``parallel/sp.py``), on top of the sp context and the
+tp shards (``parallel/tp.py``).
 
 - FSDP2 (``fully_shard``) is the counterpart of the JAX
   ``state_shardings(..., fsdp=True)`` (``transoar_tpu/parallel/tp.py``):
@@ -16,15 +18,17 @@ FSDP2, plain dp as ``DistributedDataParallel``, both over the dp group
   follows, so neither ``find_unused_parameters`` nor ``static_graph`` is
   needed.
 
-Either wrapper averages the gradient over dp; the train step scales the
-loss by dp so that the gradient is that of the global-batch loss
-(``training/trainer.make_train_step``).
+Either wrapper averages the gradient over its group; the train step scales
+the loss by dp so that the gradient is that of the global-batch loss
+(``training/trainer.make_train_step``; under sp the gather's backward
+supplies the factor sp, ``parallel/sp.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from transoar_tpu_torch.parallel import sp as sp_lib
 from transoar_tpu_torch.parallel import tp as tp_lib
 
 
@@ -48,7 +52,7 @@ def fsdp_units(model):
 def apply_fsdp(model, layout):
     from torch.distributed.fsdp import fully_shard
 
-    mesh = layout.mesh["dp"]
+    mesh = layout.grad_mesh
     for unit in fsdp_units(model):
         fully_shard(unit, mesh=mesh)
     fully_shard(model, mesh=mesh)
@@ -60,15 +64,19 @@ def apply_ddp(model, layout, device):
 
     device = torch.device(device)
     return DistributedDataParallel(
-        model, process_group=layout.dp_group,
+        model, process_group=layout.grad_group,
         device_ids=[device.index] if device.type == "cuda" else None,
         broadcast_buffers=False)
 
 
 def parallelize(model, layout, device, tp_always=False):
-    """Shard the neck over tp (when ``layout.tp > 1``, or at any size with
-    ``tp_always``), then wrap in FSDP2 (``layout.fsdp``) or DDP over dp.
-    Returns the model to train; ``unwrap`` gives the module under it."""
+    """Hand the modules their sp context (when ``layout.sp > 1``), shard
+    the neck over tp (when ``layout.tp > 1``, or at any size with
+    ``tp_always``), then wrap in FSDP2 (``layout.fsdp``) or DDP over the
+    gradient group. Returns the model to train; ``unwrap`` gives the
+    module under it."""
+    if layout.sp > 1:
+        sp_lib.apply_sp(model, layout)
     if layout.tp > 1 or tp_always:
         tp_lib.apply_tp(model, layout.tp_group, layout.tp_rank, layout.tp)
     if layout.fsdp:

@@ -3,20 +3,23 @@
 
 ``torchrun`` starts one process per card; each reads ``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK`` and joins one process group
-(``init_distributed``). The processes form a ``dp x tp`` device mesh with
-the JAX package's axis names:
+(``init_distributed``). The processes form a ``dp x sp x tp`` device mesh
+with the JAX package's axis names, in its row-major order
+(rank = (dp index * sp + sp index) * tp + tp index):
 
   dp: data parallel. Each dp index loads its own rows of every global
       batch (``local_batch_rows``); DDP or FSDP2 averages the gradients
-      over the dp group (``parallel/fsdp.py``).
+      (``parallel/fsdp.py``).
+  sp: spatial parallel. The volume's leading spatial axis is split into
+      ``sp`` equal blocks; the encoder and the FPN run on the rank's block
+      with halo exchanges, the neck and the heads on gathered tensors
+      (``parallel/sp.py``). Every sp rank of one dp index loads the same
+      rows; the gradient wrapper averages over the flattened ``dp x sp``
+      group (``Layout.grad_group``).
   tp: tensor parallel. The transformer neck's attention heads and FFN
       hidden units are split Megatron-style over the tp group
       (``parallel/tp.py``); every tp rank of one dp index loads the same
       rows.
-
-The JAX mesh's third axis, ``sp`` (spatial), is not ported: GSPMD inserts
-its conv halo exchanges, and torch has no counterpart (``make_mesh``
-raises for ``sp > 1``).
 
 A run without torchrun's environment builds no process group, no mesh and
 no ``Layout``: every function here then returns None and the model is not
@@ -32,10 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-SP_ITEM = ("ROADMAP.md, Open items: the sp spatial axis (conv halos "
-           "including the packed band conv, cross-rank InstanceNorm "
-           "statistics, the token all-gather before the RoI gather)")
-
+from transoar_tpu_torch.parallel.sp import SPShard
 
 def init_distributed(device="cuda", backend=None):
     """Join the process group torchrun describes; returns this process's
@@ -61,23 +61,19 @@ def init_distributed(device="cuda", backend=None):
 
 
 def make_mesh(dp=-1, sp=1, tp=1, device_type="cpu"):
-    """The ``("dp", "tp")`` DeviceMesh over every rank of the process group:
-    rank = dp index * tp + tp index, the JAX mesh's row-major order.
-    ``dp: -1`` takes the ranks ``tp`` leaves; a mesh that does not cover the
-    world raises."""
+    """The ``("dp", "sp", "tp")`` DeviceMesh over every rank of the process
+    group: rank = (dp index * sp + sp index) * tp + tp index, the JAX
+    mesh's row-major order. ``dp: -1`` takes the ranks ``sp`` and ``tp``
+    leave; a mesh that does not cover the world raises."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if max(int(sp), 1) > 1:
-        raise NotImplementedError(
-            f"parallel.sp = {sp}: the spatial axis is not ported, see "
-            f"{SP_ITEM}")
     world = dist.get_world_size()
-    tp = max(int(tp), 1)
-    dp = world // tp if int(dp) == -1 else int(dp)
-    if dp * tp != world:
-        raise ValueError(f"mesh {dp}x1x{tp} does not cover {world} ranks")
-    return init_device_mesh(device_type, (dp, tp),
-                            mesh_dim_names=("dp", "tp"))
+    sp, tp = max(int(sp), 1), max(int(tp), 1)
+    dp = world // (sp * tp) if int(dp) == -1 else int(dp)
+    if dp * sp * tp != world:
+        raise ValueError(f"mesh {dp}x{sp}x{tp} does not cover {world} ranks")
+    return init_device_mesh(device_type, (dp, sp, tp),
+                            mesh_dim_names=("dp", "sp", "tp"))
 
 
 def mesh_from_config(config, device_type="cpu"):
@@ -102,17 +98,28 @@ def auto_mesh(batch_size, tp=1, device_type="cpu"):
 
 class Layout:
     """This process's place in the run: the mesh, the sizes, ranks and
-    groups of its two axes, and whether FSDP2 shards the weights and the
-    AdamW moments over dp (``parallel.fsdp``)."""
+    groups of its three axes, whether FSDP2 shards the weights and the
+    AdamW moments (``parallel.fsdp``), and the mesh and group of the
+    gradient wrapper: dp alone, or under sp the flattened ``dp x sp``
+    (``grad_mesh``, ``grad_group``; ``parallel/sp.py`` says why).
+    ``sp_shard``: the sp modules' context, None at sp = 1."""
 
     def __init__(self, mesh, fsdp=False):
         self.mesh = mesh
         self.fsdp = bool(fsdp)
-        self.dp, self.tp = mesh["dp"].size(), mesh["tp"].size()
+        self.dp, self.sp, self.tp = (mesh[a].size() for a in ("dp", "sp",
+                                                                "tp"))
         self.dp_rank = mesh.get_local_rank("dp")
+        self.sp_rank = mesh.get_local_rank("sp")
         self.tp_rank = mesh.get_local_rank("tp")
         self.dp_group = mesh.get_group("dp")
+        self.sp_group = mesh.get_group("sp")
         self.tp_group = mesh.get_group("tp")
+        self.grad_mesh = mesh["dp"] if self.sp == 1 else \
+            mesh["dp", "sp"]._flatten("dp_sp")
+        self.grad_group = self.grad_mesh.get_group()
+        self.sp_shard = None if self.sp == 1 else SPShard(
+            self.sp_group, self.sp_rank, self.sp)
         self.rank, self.world = dist.get_rank(), dist.get_world_size()
 
     def generator_seed(self, seed):
@@ -120,7 +127,7 @@ class Layout:
         generator: ``seed`` on dp index 0 (what one process draws) and a
         hash of (seed, dp index) elsewhere, so that dp ranks draw different
         masks for their different rows while the tp ranks of one dp index,
-        which hold the same rows, draw the same."""
+        and the sp ranks, which hold the same rows, draw the same."""
         if self.dp_rank == 0:
             return int(seed)
         state = np.random.SeedSequence([int(seed), self.dp_rank])
@@ -146,8 +153,8 @@ def layout_from_config(config, device):
 def local_batch_rows(layout, batch_size):
     """The rows of every global batch this process loads, or None in a
     one-process run: the block of ``batch_size / dp`` rows its dp index
-    consumes (``NamedSharding(mesh, P("dp"))``'s index map); every tp rank
-    of one dp index loads the same rows."""
+    consumes (``NamedSharding(mesh, P("dp"))``'s index map); every sp and
+    tp rank of one dp index loads the same rows."""
     if layout is None or layout.world == 1:
         return None
     if int(batch_size) % layout.dp:

@@ -18,9 +18,11 @@ Multi-GPU, one process per card:
 
 reads torchrun's environment (``parallel.mesh.init_distributed``: NCCL on
 ``cuda:LOCAL_RANK``, gloo with ``--device cpu``), lays the ranks out by
-the config's ``parallel`` section (``dp``, ``tp``, ``fsdp``; ``sp`` > 1
-raises), loads each rank's rows of every global batch, shards the neck
-over tp and wraps the model in FSDP2 or DDP (``parallel.fsdp``). Only
+the config's ``parallel`` section (``dp``, ``sp``, ``tp``, ``fsdp``),
+loads each rank's rows of every global batch, hands the model's modules
+their block of the volume's S0 over sp (a shape ``parallel.sp.sp_plan``
+forbids raises before the first step), shards the neck over tp and wraps
+the model in FSDP2 or DDP (``parallel.fsdp``). Only
 rank 0 logs to the run's log and writes the run directory; the process
 group is torn down at the end. Without torchrun's environment nothing of
 this happens.
@@ -70,8 +72,8 @@ def train(config, args, **trainer_options):
     logger.info("model parameters: %.2fM",
                 sum(p.numel() for p in model.parameters()) / 1e6)
     if layout is not None:
-        logger.info("mesh dp %d x tp %d, %s", layout.dp, layout.tp,
-                    "FSDP2" if layout.fsdp else "DDP")
+        logger.info("mesh dp %d x sp %d x tp %d, %s", layout.dp, layout.sp,
+                    layout.tp, "FSDP2" if layout.fsdp else "DDP")
         model = parallelize(model, layout, device)
     optimizer, scheduler = make_optimizer(model, config,
                                           max(len(train_loader), 1))
@@ -85,19 +87,15 @@ def train(config, args, **trainer_options):
         else:
             logger.info("--auto_resume: no checkpoint at %s, fresh start",
                         last)
-    epoch, metric_start_val = 0, 0.0
+    trainer = Trainer(config, model, train_loader, val_loader, path_to_run,
+                      device, optimizer, scheduler, layout=layout,
+                      **trainer_options)
     if resume_from:
-        epoch, metric_start_val = ckpt_lib.restore_checkpoint(
-            resume_from, model, optimizer, scheduler, device, layout)
+        epoch, metric_start_val = trainer.resume(resume_from)
         logger.info("resumed from %s at epoch %d (best %.3f)", resume_from,
                     epoch, metric_start_val)
     if layout is None or layout.rank == 0:
         ckpt_lib.freeze_run_config(config, path_to_run)
-
-    trainer = Trainer(config, model, train_loader, val_loader, path_to_run,
-                      device, optimizer, scheduler, start_epoch=epoch,
-                      metric_start_val=metric_start_val, layout=layout,
-                      **trainer_options)
     trainer.run()
     return trainer
 

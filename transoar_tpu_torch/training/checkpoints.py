@@ -7,8 +7,12 @@ file, both written with ``torch.save`` and read with ``weights_only=True``:
 
 - a training checkpoint (``save_training_checkpoint``): the model's
   ``state_dict`` (reference parameter names), the optimizer's and the
-  scheduler's state, the epoch and the best metric so far, so that
-  ``restore_checkpoint`` resumes training exactly;
+  scheduler's state, the epoch and the best metric so far and, with
+  ``trainer.grad_accum_steps`` > 1, the accumulation (``accumulation``:
+  the ``UpdateRule``'s count of calls and its partial mean gradient by
+  parameter name, as the JAX package's ``opt_state`` holds
+  ``optax.MultiSteps``'), so that ``restore_checkpoint`` resumes training
+  exactly;
 - a bare model ``state_dict`` (``save_checkpoint``), as a converted or
   seeded run holds.
 
@@ -23,7 +27,10 @@ layout, gathered by every rank (``get_model_state_dict`` /
 all-gathers) and written by rank 0. Such a checkpoint loads unchanged into
 one process (``predict``, ``test``, ``import_checkpoint``), and
 ``restore_checkpoint`` under a layout cuts it back into the rank's shards,
-so a run resumes under any layout.
+so a run resumes under any layout. The accumulation is saved whole by
+parameter name alike. Spatial parallelism (``parallel/sp.py``) shards no
+parameter: its ranks hold whole parameters (under FSDP2, shards of the
+``dp x sp`` group), so these layouts need nothing more.
 """
 
 from __future__ import annotations
@@ -114,15 +121,60 @@ def optimizer_state_dict(model, optimizer, layout=None) -> dict:
     return {"state": state, "param_groups": groups}
 
 
+def accumulation_state(model, update, layout=None) -> dict:
+    """The ``UpdateRule``'s accumulation in the full-state layout:
+    ``mini_step`` and ``mean`` {parameter name: whole tensor} (empty before
+    the first call); under a layout a collective of every rank."""
+    names = _param_names(model)
+    plan = getattr(unwrap(model), "tp_plan", {})
+    mean = {}
+    for p, acc in zip(update.params, update._acc or ()):
+        name = names[id(p)]
+        acc = acc.full_tensor() if hasattr(acc, "full_tensor") else acc
+        if name in plan:
+            acc = tp_lib.gather_tensor(acc, plan[name], layout.tp_group,
+                                       layout.tp)
+        mean[name] = acc.cpu()
+    return {"mini_step": int(update.mini_step), "mean": mean}
+
+
+def load_accumulation(model, update, saved, layout=None) -> None:
+    """Cut ``accumulation_state``'s record back into this rank's layout of
+    ``update``'s parameters (tp shards, FSDP2 DTensors)."""
+    update.mini_step = int(saved["mini_step"])
+    if not saved["mean"]:
+        update._acc = None
+        return
+    names = _param_names(model)
+    plan = getattr(unwrap(model), "tp_plan", {})
+    accs = []
+    for p in update.params:
+        name = names[id(p)]
+        acc = saved["mean"][name].to(device=p.device, dtype=p.dtype)
+        if name in plan:
+            acc = tp_lib.shard_tensor(acc, *plan[name], layout.tp_rank,
+                                      layout.tp)
+        if hasattr(p, "device_mesh"):  # an FSDP2 DTensor
+            from torch.distributed.tensor import distribute_tensor
+
+            acc = distribute_tensor(acc, p.device_mesh, p.placements)
+        accs.append(acc.clone())
+    update._acc = accs
+
+
 def save_training_checkpoint(path_to_run, name, model, optimizer, scheduler,
-                             epoch, metric_max_val, layout=None) -> Path:
-    """Write model, optimizer, scheduler, epoch and best metric. Under a
-    layout every rank calls it and rank 0 writes."""
+                             epoch, metric_max_val, layout=None,
+                             update=None) -> Path:
+    """Write model, optimizer, scheduler, epoch, best metric and, for an
+    ``update`` rule that accumulates, its accumulation. Under a layout
+    every rank calls it and rank 0 writes."""
     record = {"model": model_state_dict(model, layout),
               "optimizer": optimizer_state_dict(model, optimizer, layout),
               "scheduler": scheduler.state_dict(),
               "epoch": int(epoch),
               "metric_max_val": float(metric_max_val)}
+    if update is not None and update.accum > 1:
+        record["accumulation"] = accumulation_state(model, update, layout)
     if layout is None or layout.rank == 0:
         torch.save(record, _target(path_to_run, name))
     return Path(path_to_run) / f"{name}.pt"
@@ -182,9 +234,10 @@ def _load_sharded(obj, model, optimizer, layout):
 
 
 def restore_checkpoint(path, model, optimizer, scheduler, device=None,
-                       layout=None):
-    """Load a training checkpoint into ``model``, ``optimizer`` and
-    ``scheduler`` (under a layout: into the rank's shards); returns
+                       layout=None, update=None):
+    """Load a training checkpoint into ``model``, ``optimizer``,
+    ``scheduler`` and, where it holds one, the accumulation into the
+    ``update`` rule (under a layout: into the rank's shards); returns
     (epoch, metric_max_val)."""
     obj = torch.load(path, map_location=device, weights_only=True)
     if not _is_training_checkpoint(obj):
@@ -196,6 +249,8 @@ def restore_checkpoint(path, model, optimizer, scheduler, device=None,
     else:
         _load_sharded(obj, model, optimizer, layout)
     scheduler.load_state_dict(obj["scheduler"])
+    if update is not None and "accumulation" in obj:
+        load_accumulation(model, update, obj["accumulation"], layout)
     return obj["epoch"], obj["metric_max_val"]
 
 

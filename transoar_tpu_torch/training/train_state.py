@@ -13,15 +13,17 @@
 - ``clip_grad_norm``: optax's ``clip_by_global_norm`` (scale by
   ``max_norm / norm`` when ``norm >= max_norm``), on the device, no sync.
   Under a multi-GPU ``Layout`` the gradients are shards: the squares are
-  summed over the dp group under FSDP2 (whose gradients are dp shards)
-  and, for the tp shards, over the tp group (replicated gradients are
-  whole on every tp rank and counted once).
+  summed over the gradient group under FSDP2 (whose gradients are shards
+  over dp, or dp x sp) and, for the tp shards, over the tp group
+  (replicated gradients are whole on every tp rank, and under DDP on
+  every sp rank, and counted once).
 - ``UpdateRule``: one call's update after its backward. With
   ``trainer.grad_accum_steps`` k > 1 it is ``optax.MultiSteps`` around
   ``chain(clip, adamw groups)``: the calls' gradients are averaged
   (Welford: ``acc += (g - acc) / (n + 1)``), and every k-th call the clip,
   AdamW and the schedule step once on the mean (DTensor gradients under
-  FSDP2 alike). The partial mean is not checkpointed.
+  FSDP2 alike). Training checkpoints hold ``mini_step`` and the partial
+  mean (``checkpoints.accumulation_state``).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def _global_norm(grads, sharded, layout):
                                  if not s]),
                         squares([g for g, s in zip(grads, sharded) if s])])
     if layout.fsdp:
-        dist.all_reduce(sums, group=layout.dp_group)
+        dist.all_reduce(sums, group=layout.grad_group)
     replicated, shards = sums[0], sums[1].clone()
     if layout.tp > 1:
         dist.all_reduce(shards, group=layout.tp_group)

@@ -47,7 +47,18 @@ losses are the shares summed over dp (one all-reduce a step), the
 generator's seed folds in the dp index (``Layout.generator_seed``).
 Validation runs on every rank over the whole val split, as the JAX
 trainer; every rank makes the same best-checkpoint decision and the
-checkpoints are gathered by all and written by rank 0.
+checkpoints are gathered by all and written by rank 0. Under spatial
+parallelism (``parallel/sp.py``) the sp ranks of one dp index hold the
+same rows: each augments and windows them whole, derives the targets from
+the whole segmentation, and hands the model its block of S0; the model's
+outputs are whole, so the normalizers and the reported losses stay
+all-reduced over dp alone (over dp x sp they would count sp times), and
+every sp rank runs every validation batch, since the model's collectives
+need all of them.
+
+With ``grad_accum_steps`` > 1 the training checkpoints also hold the
+accumulation's partial mean and its count (``checkpoints.py``), so a
+resumed run updates where the uninterrupted one does.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from transoar_tpu_torch.data.transforms import (HostAugmentingLoader,
 from transoar_tpu_torch.eval.evaluator import build_evaluator
 from transoar_tpu_torch.models.criterion import build_criterion, total_loss
 from transoar_tpu_torch.models.retina import retina_inference
+from transoar_tpu_torch.parallel import sp as sp_lib
 from transoar_tpu_torch.parallel.fsdp import unwrap
 from transoar_tpu_torch.parallel.tp import tp_sharded
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
@@ -123,8 +135,9 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
                     generator=None, layout=None):
     """``step(batch) -> {loss name: device scalar}``; ``batch`` holds the
     device tensors ``image`` [B, S0, S1, S2, 1] and ``seg`` [B, S0, S1, S2]
-    (a dp rank's rows under ``layout``). The step leaves the model's
-    train/eval mode as it finds it."""
+    (a dp rank's rows under ``layout``, whole over S0). The step leaves the
+    model's train/eval mode as it finds it; ``step.update`` is its
+    ``UpdateRule``."""
     tcfg = config["trainer"]
     coefs = config["loss_coefs"]
     num_classes = config["neck"]["num_organs"]
@@ -144,6 +157,7 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
                         accum=tcfg.get("grad_accum_steps", 1),
                         layout=layout, sharded=[s for _, s in trained])
     group = None if layout is None else layout.dp_group
+    sp = None if layout is None else layout.sp_shard
 
     def train_step(batch):
         if mode == "device":
@@ -153,6 +167,8 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
         else:  # the host augmenter already windowed its batches
             image, seg = _prepare(batch, None if mode == "host" else stats)
         targets = derive_targets(seg, num_classes, padding)
+        if sp is not None:
+            image = sp_lib.scatter(image, sp)
         out = model(image, generator=generator)
         if layout is None:
             losses = criterion(out, targets, net.anchors)
@@ -172,22 +188,25 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
             update()
         return losses
 
+    train_step.update = update
     return train_step
 
 
-def make_eval_step(model, criterion, config):
-    """``step(batch) -> (losses, preds, targets)``, device tensors."""
+def make_eval_step(model, criterion, config, layout=None):
+    """``step(batch) -> (losses, preds, targets)``, device tensors; under
+    sp the model gets the rank's block of the whole batch."""
     coefs = config["loss_coefs"]
     num_classes = config["neck"]["num_organs"]
     padding = config.get("bbox_padding", 1)
     stats = config.get("foreground_voxel_statistics")
     net = unwrap(model)
+    sp = None if layout is None else layout.sp_shard
 
     @torch.no_grad()
     def eval_step(batch):
         image, seg = _prepare(batch, stats)
         targets = derive_targets(seg, num_classes, padding)
-        out = model(image)
+        out = model(image if sp is None else sp_lib.scatter(image, sp))
         losses = criterion(out, targets, net.anchors)
         losses["total"] = total_loss(losses, coefs)
         return losses, {k: out[k] for k in _PRED_KEYS if k in out}, targets
@@ -295,7 +314,7 @@ class Trainer:
         self._train_step = make_train_step(model, criterion, optimizer,
                                            scheduler, config, self._generator,
                                            layout)
-        self._eval_step = make_eval_step(model, criterion, config)
+        self._eval_step = make_eval_step(model, criterion, config, layout)
         self.clock = _StepClock(self._device)
         self.history = []  # one {"epoch", "train"/"val"/"metrics"} per epoch
 
@@ -409,8 +428,18 @@ class Trainer:
             ckpt_lib.save_training_checkpoint(
                 self._path_to_run, f"model_best_{metric:.3f}", self._model,
                 self.optimizer, self.scheduler, epoch, self._metric_max_val,
-                self._layout)
+                self._layout, self._train_step.update)
         return means, metric_scores
+
+    def resume(self, path):
+        """Restore a training checkpoint into the model, the optimizer, the
+        schedule and the accumulation, and start after its epoch; returns
+        (epoch, best metric)."""
+        epoch, best = ckpt_lib.restore_checkpoint(
+            path, self._model, self.optimizer, self.scheduler, self._device,
+            self._layout, self._train_step.update)
+        self._epoch_to_start, self._metric_max_val = epoch, best
+        return epoch, best
 
     def run(self):
         cfg = self._config["trainer"]
@@ -430,7 +459,8 @@ class Trainer:
                 ckpt_lib.save_training_checkpoint(
                     self._path_to_run, "model_last", self._model,
                     self.optimizer, self.scheduler, epoch,
-                    self._metric_max_val, self._layout)
+                    self._metric_max_val, self._layout,
+                    self._train_step.update)
             self.history.append(record)
             logger.info("epoch %d done in %.1fs total_loss=%.4f mAP_coco=%s",
                         epoch, time.monotonic() - t0,
