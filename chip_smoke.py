@@ -168,7 +168,18 @@ each printing a line; any failure exits non-zero before the result lines:
    rank's; then ``train.main`` under ``torch.distributed.run`` on each
    config as shipped with ``parallel.sp: 2`` for one epoch of its dataset
    (its launches on every rank, a checkpoint in the plain layout). Two processes sharing a card measure correctness and memory,
-   not scaling.
+   not scaling;
+21. bench: ``transoar_tpu_torch.bench.main`` in this process with
+   ``--steps 2 --warmup 1 --scan_steps 2`` (cuDNN's default TF32, as the
+   CLI runs): the flagship's train step at batch 2 and 1, its serving
+   (``--mode eval``, batch 2 and 1) and swin_fpn_visceral's train step at
+   batch 2; each run prints one stdout line with bench.py's keys and
+   ``device``, finite values > 0, and launches kernels 1-3 (4-5 on Swin)
+   as remat off gives: 2 / 1 / 2 band-conv launches a step (8 / 8 window
+   forward / backward), 2 band-conv launches (8 window forwards) a volume
+   served; then the flagship's bench step at batch 2 under
+   ``torch.profiler``: its device busy ms, event ms and idle share, and the
+   batch-2 value at most 2 / busy seconds (else the window missed work).
 
 Every path is driven with all kernel counts set to 0 just before it and
 read just after; every serving, training and test path also requires
@@ -2416,6 +2427,131 @@ def phase_sp(root, datasets):
     return counts
 
 
+# phase 21: ``transoar_tpu_torch.bench.main`` in this process, short:
+# (warmup + steps) x scan_steps = 6 steps a batch size; each run's
+# arguments, its path and the window launches a step (0: the flagship)
+BENCH_ARGS = ["--steps", "2", "--warmup", "1", "--scan_steps", "2"]
+BENCH_STEPS = 6
+BENCH_RUNS = (("bench_train", [], 0), ("bench_eval", ["--mode", "eval"], 0),
+              ("bench_swin_train", ["--config", "swin_fpn_visceral",
+                                    "--batch_size", "2"],
+               SWIN_WINDOW_LAUNCHES))
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
+# band conv launches per train step with remat off: the forward once
+BENCH_STEP_LAUNCHES = {"packed_conv": 2, "packed_conv_dx": 1,
+                       "packed_conv_dw": 2}
+
+
+def _bench_want(args, windows):
+    """Launches of one bench run: every step of every batch size."""
+    sizes = [int(args[args.index("--batch_size") + 1])] \
+        if "--batch_size" in args else [2, 1]
+    if "eval" in args:  # a forward per volume
+        volumes = BENCH_STEPS * sum(sizes)
+        want = {"packed_conv": 2 * volumes}
+        if windows:
+            want["fused_window_attention"] = windows * volumes
+        return want
+    steps = BENCH_STEPS * len(sizes)
+    want = {k: n * steps for k, n in BENCH_STEP_LAUNCHES.items()}
+    if windows:
+        want.update(fused_window_attention=windows * steps,
+                    fused_window_attention_bwd=windows * steps)
+    return want
+
+
+def _bench_busy(batch_size, steps=3):
+    """The flagship's bench step at ``batch_size``: (device busy ms a step
+    under torch.profiler, event ms a step without it, idle share = 1 -
+    busy / event ms; the profiler's host work would inflate its own
+    window's event time)."""
+    from transoar_tpu_torch import bench
+
+    _, step = bench.build_benchmark(batch_size, (256, 256, 128))
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_ms = busy / 1e3 / steps
+    if busy_ms <= 0:
+        fail("bench: the profiler recorded no device time")
+    return busy_ms, event_ms, 1.0 - busy_ms / event_ms
+
+
+def phase_bench():
+    """``python -m transoar_tpu_torch.bench`` in this process (BENCH_RUNS,
+    cuDNN's default TF32 as the CLI runs), each run's one stdout line
+    checked against bench.py's keys, its values finite and > 0, its
+    launches those of remat off; then the flagship's bench step at batch 2
+    under the profiler, against which the batch-2 value must not exceed
+    2 / busy seconds. Returns {path: counts}."""
+    import contextlib
+    import io
+
+    from transoar_tpu_torch import bench
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts, values = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for path, args, windows in BENCH_RUNS:
+            out = io.StringIO()
+            _reset_launches()
+            with contextlib.redirect_stdout(out):
+                bench.main(BENCH_ARGS + args)
+            counts[path] = _counts()
+            lines = out.getvalue().splitlines()
+            if len(lines) != 1:
+                fail(f"{path}: bench printed {len(lines)} lines, want 1")
+            result = json.loads(lines[0])
+            keys = BENCH_KEYS | ({"batch1_volumes_per_sec",
+                                  "batch1_vs_baseline"}
+                                 if "--batch_size" not in args else set())
+            if set(result) != keys:
+                fail(f"{path}: bench keys {sorted(result)}, want "
+                     f"{sorted(keys)}")
+            for key in ("value", "batch1_volumes_per_sec"):
+                v = result.get(key, 1.0)
+                if not (np.isfinite(v) and v > 0):
+                    fail(f"{path}: bench {key} {v}")
+            _check_launches(path, counts[path], _bench_want(args, windows))
+            values[path] = result["value"]
+            print(f"bench: {path} {lines[0]}", flush=True)
+        busy_ms, event_ms, idle = _bench_busy(2)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    ceiling = 2e3 / busy_ms
+    if values["bench_train"] > ceiling:
+        fail(f"bench: flagship batch 2 at {values['bench_train']} "
+             f"volumes/s, above 2 / busy seconds = {ceiling:.4f}: the "
+             f"timed window missed work")
+    print(f"bench: flagship train step at batch 2: device busy "
+          f"{busy_ms:.2f} ms under the profiler, event {event_ms:.2f} ms "
+          f"a step without it, "
+          f"idle share {idle:.4f}; 2 / busy s = {ceiling:.4f} volumes/s >= "
+          f"the bench's {values['bench_train']}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def _entry(name, replaces, launches, rows, path_rows,
            source="transoar_tpu_torch/csrc/packed_conv.cu"):
     """One kernel of the result line; times and bounds sum the path's
@@ -2481,6 +2617,7 @@ def main():
         family_results.update(retina_results)
         paths.update(phase_parallel(root, datasets["foc_dec_amos"]))
         paths.update(phase_sp(root, datasets))
+    paths.update(phase_bench())
     _loop_summary(loop_results)
     _family_summary(family_results)
     src = "transoar_tpu/ops/pallas/packed_conv.py"

@@ -2,7 +2,7 @@
 on the card.
 
     python scripts/profile_torch_serving.py [--config NAME] [--train] \
-        [--steps 5] [--trace PATH]
+        [--bench B] [--steps 5] [--trace PATH]
 
 Builds a full-width model of transoar_tpu_torch (``--config foc_dec_amos``,
 the default: 256x256x128; ``swin_fpn_visceral``: 160x160x256 with Swin
@@ -16,7 +16,12 @@ up, and then reports for ``--steps`` forwards of one volume (serving, batch
 1) or, with ``--train``, train steps at batch 2
 (``training.trainer.make_train_step``: forward with dropout and DropPath,
 criterion, backward with the CNN stages' remat recompute, AdamW;
-augmentation off, two synthetic cases):
+augmentation off, two synthetic cases). With ``--bench B`` it profiles
+the step of ``python -m transoar_tpu_torch.bench`` at batch B instead
+(``bench.build_benchmark`` with ``--train``, else
+``bench.build_eval_benchmark``: remat off, the bench's synthetic batch,
+B volumes served one at a time with their decode), whose busy time bounds
+the bench's value (at most B / busy seconds):
 
 - wall ms per forward / step (host clock around work that ends in a
   synchronize); for RetinaNet the serving forward is followed by its decode
@@ -59,6 +64,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from transoar_tpu_torch import bench  # noqa: E402
 from transoar_tpu_torch.data.synthetic import make_case  # noqa: E402
 from transoar_tpu_torch.models.criterion import build_criterion  # noqa: E402
 from transoar_tpu_torch.models.retina import retina_inference  # noqa: E402
@@ -179,6 +185,9 @@ def main():
                         help="Which full-width model to profile.")
     parser.add_argument("--train", action="store_true",
                         help="Profile the batch-2 train step instead.")
+    parser.add_argument("--bench", type=int, default=None, metavar="B",
+                        help="Profile transoar_tpu_torch.bench's step at "
+                             "batch B instead.")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--trace", type=str, default=None)
     args = parser.parse_args()
@@ -189,14 +198,22 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi)
 
-    batch = 2 if args.train else 1
-    cfg = (retina_unet_config(batch) if args.config == "retina_unet_amos"
-           else model_config(args.config, batch_size=batch))
-    cfg["augmentation"]["use_augmentation"] = False
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict(random_state_dict(model, 0))
-    model = model.cuda()
-    run = (_training if args.train else _serving)(cfg, model)
+    if args.bench:
+        batch = args.bench
+        build = (bench.build_benchmark if args.train
+                 else bench.build_eval_benchmark)
+        patch = bench.bench_config(args.config)["augmentation"]["patch_size"]
+        model, run = build(batch, tuple(patch), args.config)
+    else:
+        batch = 2 if args.train else 1
+        cfg = (retina_unet_config(batch)
+               if args.config == "retina_unet_amos"
+               else model_config(args.config, batch_size=batch))
+        cfg["augmentation"]["use_augmentation"] = False
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(random_state_dict(model, 0))
+        model = model.cuda()
+        run = (_training if args.train else _serving)(cfg, model)
     torch.cuda.reset_peak_memory_stats()
 
     for _ in range(3):
@@ -244,7 +261,7 @@ def main():
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::") and e.device_time_total > 0),
                  key=lambda e: -e.device_time_total)[:15]
-    unit = "step" if args.train else "forward"
+    unit = "step" if args.train or args.bench else "forward"
     clock = getattr(getattr(run, "criterion", None), "clock", None)
     matcher = None if clock is None else {
         "calls": len(clock.solve_ms),
@@ -253,7 +270,9 @@ def main():
     print(json.dumps({
         "device": smi,
         "config": args.config,
-        "mode": "train step, batch 2" if args.train else "serving, batch 1",
+        "mode": "%s%s, batch %d" % ("bench " if args.bench else "",
+                                     "train step" if args.train
+                                     else "serving", batch),
         f"wall_ms_per_{unit}": walls,
         "wall_ms_median": wall,
         f"device_busy_ms_per_{unit}": busy,

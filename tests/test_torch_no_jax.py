@@ -1,11 +1,11 @@
 """The port never imports jax, flax or the JAX package: every module of
 transoar_tpu_torch (its CLIs ``train``, ``test``, ``predict``,
-``prepare_dataset_amos``, ``prepare_dataset_visceral`` and
-``import_checkpoint`` included, and ``parallel/``), ``chip_smoke.py``, the
-port's scripts, the multi-process test worker and the CUDA-only parallel
-tests import in a fresh interpreter where all three are blocked, and no import
-statement anywhere in their sources (function bodies included) names
-``transoar_tpu``."""
+``prepare_dataset_amos``, ``prepare_dataset_visceral``,
+``import_checkpoint`` and ``bench`` included, and ``parallel/``),
+``chip_smoke.py``, the port's scripts, the multi-process test worker and
+the CUDA-only parallel tests import in a fresh interpreter where all three
+are blocked, and no import statement anywhere in their sources (function
+bodies included) names ``transoar_tpu``."""
 
 import ast
 import subprocess
@@ -31,6 +31,7 @@ for i, path in enumerate(%r):
     spec = importlib.util.spec_from_file_location(f"script{i}", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("transoar_tpu_torch.predict", "transoar_tpu_torch.train",
+             "transoar_tpu_torch.bench",
              "transoar_tpu_torch.test",
              "transoar_tpu_torch.prepare_dataset_amos",
              "transoar_tpu_torch.prepare_dataset_visceral",
