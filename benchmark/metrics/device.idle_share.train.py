@@ -1,0 +1,9 @@
+"""device.idle_share: the share of the traced window in which no operation
+ran on the card, %: 1 - (the union of every kernel, copy and memset
+interval on every stream) / the window."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
