@@ -20,27 +20,40 @@ augmentation off, two synthetic cases). With ``--bench B`` it profiles
 the step of ``python -m transoar_tpu_torch.bench`` at batch B instead
 (``bench.build_benchmark`` with ``--train``, else
 ``bench.build_eval_benchmark``: remat off, the bench's synthetic batch,
-B volumes served one at a time with their decode), whose busy time bounds
-the bench's value (at most B / busy seconds):
+B volumes served one at a time with their decode):
 
 - wall ms per forward / step (host clock around work that ends in a
   synchronize); for RetinaNet the serving forward is followed by its decode
   (``retina_inference``: top-500 candidates a class, the batched NMS, the
   kept slots to the host), whose CUDA-event ms are reported apart;
-- device ms per module (CUDA events around each encoder stage, the FPN
-  decoder (the refine included), the refine alone, the neck, the
-  box-regression head, RetinaNet's two towers and the seg head, summed over a step's completed
-  calls; in training an encoder stage's remat recompute stops early and is
-  not among them);
-- kernel time by name from ``torch.profiler`` (device busy time, idle
-  share = 1 - busy / wall): the 15 largest, and every one of the port's
-  own kernels (csrc/) with its ms and launches per forward / step; the 15
-  aten ops with the most device time under them (kernels they launch,
-  nested ops' included: ``aten::grid_sampler_3d`` and its backward, the
-  attention's ``aten::bmm``, ``aten::cudnn_convolution``...); with
-  ``--trace``, a chrome trace;
-- with ``--train`` the criterion's forward (matching, targets and losses)
-  between CUDA events, per step;
+- device ms per module from the port's own spans in the profiled pass
+  (``model.encoder.stage<i>``, ``model.fpn`` (the refine included),
+  ``model.fpn.refine``, ``model.neck``, ``model.heads`` (the class and
+  box heads with the box decode), RetinaNet's ``model.cls_tower`` /
+  ``model.reg_tower``, ``model.seg_head``), per forward / step: each
+  span's range as the profiler mirrors it on the device's timeline, its
+  first kernel to its last; calls from
+  ``transoar_tpu_torch.utils.spans.summary()``. An encoder stage's span
+  lies outside its remat checkpoint, so the recompute in the backward is
+  not in it;
+- with ``--train`` (or a ``--bench`` train step) the step's phases from
+  ``spans.summary()``, device ms per step: ``step.inputs``,
+  ``step.forward``, ``step.criterion`` (matching, losses,
+  ``total_loss``), ``step.backward``, ``step.update``, each a
+  stream-order interval (its kernels and any wait for the host inside
+  it). They are taken under the profiler, which slows the host, so they
+  add up to the profiled pass's wall (``profiled_wall_ms_per_*``), not
+  to the unprofiled ``wall_ms_per_*``;
+- kernel time by name from ``torch.profiler``: the 15 largest, and every
+  one of the port's own kernels (csrc/) with its ms and launches per
+  forward / step; the 15 aten ops with the most device time under them
+  (kernels they launch, nested ops' included: ``aten::grid_sampler_3d``
+  and its backward, the attention's ``aten::bmm``,
+  ``aten::cudnn_convolution``...); with ``--trace``, a chrome trace (the
+  spans are its named ranges). Summed kernel times count kernels that
+  overlap on two streams twice, so they give no idle share: the
+  benchmark's ``device.idle_share.*`` (the union of the device's
+  intervals over a traced window) does;
 - with ``--train`` and a DETR neck, the exact matcher's host ms per step
   (``SetCriterion.clock``: the cost's copy to the host, which waits for the
   forward, and the solve with the copy back).
@@ -74,6 +87,7 @@ from transoar_tpu_torch.presets import (model_config,  # noqa: E402
 from transoar_tpu_torch.training.train_state import (  # noqa: E402
     make_optimizer)
 from transoar_tpu_torch.training.trainer import make_train_step  # noqa: E402
+from transoar_tpu_torch.utils import spans  # noqa: E402
 from transoar_tpu_torch.utils.weights import random_state_dict  # noqa: E402
 
 
@@ -83,42 +97,6 @@ PORT_KERNEL = re.compile(r"::((?:(?:conv|dw)_(?:wide|fold|mma|fma)|dw_reduce"
 CONFIGS = ("foc_dec_amos", "swin_fpn_visceral", "foc_dec_seg_amos",
            "foc_dec_refine_amos", "detr_amos", "def_detr_amos",
            "retina_amos", "retina_unet_amos")
-
-
-def _timed_modules(model):
-    """CUDA events around every call of the timed modules: {name: [(start,
-    end), ...]}. A remat recompute that stops early (after the last tensor
-    the backward needs) has no end and is not counted."""
-    mods = {f"encoder.stage{i}": m
-            for i, m in enumerate(model._backbone._encoder._stages)}
-    mods["fpn_decoder"] = model._backbone._decoder
-    if hasattr(model._backbone._decoder, "_refine"):
-        mods["refine"] = model._backbone._decoder._refine
-    for name in ("neck", "reg_head", "cls_tower", "reg_tower"):
-        if hasattr(model, f"_{name}"):
-            mods[name] = getattr(model, f"_{name}")
-    if hasattr(model, "_seg_head"):
-        mods["seg_head"] = model._seg_head
-    events = {name: [] for name in mods}
-    pending = {}
-
-    def hooks(name):
-        def pre(_mod, _args):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            pending[name] = ev
-
-        def post(_mod, _args, _out):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name].append((pending.pop(name), ev))
-        return pre, post
-
-    for name, mod in mods.items():
-        pre, post = hooks(name)
-        mod.register_forward_pre_hook(pre)
-        mod.register_forward_hook(post)
-    return events
 
 
 def _serving(cfg, model):
@@ -158,23 +136,10 @@ def _training(cfg, model):
                  "cuda", torch.int8)}
     optimizer, scheduler = make_optimizer(model, cfg, 1)
     criterion = build_criterion(cfg)
-    events = []
-
-    def timed_criterion(*args, **kwargs):
-        """The criterion's forward between CUDA events."""
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses = criterion(*args, **kwargs)
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        events.append((start, end))
-        return losses
-
-    step = make_train_step(model, timed_criterion, optimizer, scheduler, cfg,
+    step = make_train_step(model, criterion, optimizer, scheduler, cfg,
                            torch.Generator(device="cuda").manual_seed(0))
     run = lambda: step(batch)  # noqa: E731
     run.criterion = criterion
-    run.criterion_events = events
     return run
 
 
@@ -221,44 +186,49 @@ def main():
     torch.cuda.synchronize()
     decode_ms = getattr(run, "decode_ms", [])
     decode_ms.clear()
-    crit_events = getattr(run, "criterion_events", [])
-    crit_events.clear()
-    events = _timed_modules(model)
     walls = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    # per module: device ms per step over its completed calls (encoder
-    # stages in training: the forward, plus any recompute that completes)
-    calls = {name: len(evs) / args.steps for name, evs in events.items()}
-    per_module = {name: sum(s.elapsed_time(e) for s, e in evs) / args.steps
-                  for name, evs in events.items()}
-    for evs in events.values():
-        evs.clear()
     decode = list(decode_ms)
-    crit_ms = [a.elapsed_time(b) for a, b in crit_events]
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    spans.clear()
+    profiled_walls = []
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.steps):
+            t0 = time.perf_counter()
             run()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            profiled_walls.append(1e3 * (time.perf_counter() - t0))
+    recorded = spans.summary()
+    calls = {name: s["calls"] / args.steps for name, s in recorded.items()}
+    phases = {name: sum(s["device_ms"]) / args.steps
+              for name, s in recorded.items() if s["device_ms"]}
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # a span's (or any record_function's) range mirrored on the device's
+    # timeline: a module's device ms, and no kernel
+    ranges = {e.key: e.device_time_total / 1e3 / args.steps
+              for e in averages if e.device_type == cuda
+              and e.key in recorded}
+    kernels = [e for e in averages
+               if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in recorded]
     if not kernels:
         sys.exit("the profiler recorded no device kernels")
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     wall = statistics.median(walls)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     ours = [e for e in kernels if PORT_KERNEL.search(e.key)]
-    ops = sorted((e for e in prof.key_averages()
+    ops = sorted((e for e in averages
                   if e.key.startswith("aten::") and e.device_time_total > 0),
                  key=lambda e: -e.device_time_total)[:15]
     unit = "step" if args.train or args.bench else "forward"
@@ -275,10 +245,12 @@ def main():
                                      else "serving", batch),
         f"wall_ms_per_{unit}": walls,
         "wall_ms_median": wall,
-        f"device_busy_ms_per_{unit}": busy,
-        "idle_share": 1.0 - busy / wall,
-        "module_device_ms": per_module,
-        "module_calls_per_step": calls,
+        f"profiled_wall_ms_per_{unit}": profiled_walls,
+        "module_device_ms": {n: ms for n, ms in ranges.items()
+                             if n.startswith("model.")},
+        "module_calls_per_step": {n: c for n, c in calls.items()
+                                  if n.startswith("model.")},
+        "step_phase_device_ms": phases or None,
         f"top_kernels_ms_per_{unit}": [
             [e.key[:90], e.self_device_time_total / 1e3 / args.steps,
              e.count // args.steps] for e in top],
@@ -291,7 +263,6 @@ def main():
              e.count // args.steps] for e in ops],
         "matcher_host_ms": matcher,
         "retina_decode_event_ms": decode or None,
-        "criterion_forward_event_ms": crit_ms or None,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }, indent=1))
 

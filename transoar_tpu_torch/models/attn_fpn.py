@@ -49,6 +49,7 @@ from transoar_tpu_torch.models.layers import EncoderCnnBlock
 from transoar_tpu_torch.models.swin import EncoderSwinBlock
 from transoar_tpu_torch.ops.conv3d import Conv3d, ConvTranspose3d
 from transoar_tpu_torch.parallel import sp as sp_lib
+from transoar_tpu_torch.utils.spans import span
 
 
 def required_stages(config) -> list[int]:
@@ -109,6 +110,8 @@ class Encoder(nn.Module):
                 spatial = tuple(-(-n // st) for n, st in zip(spatial, stride))
             in_ch = start * 2 ** s
         self._stages = nn.ModuleList(stages)
+        self._spans = tuple(f"model.encoder.stage{i}"
+                            for i in range(len(stages)))
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None
@@ -118,12 +121,14 @@ class Encoder(nn.Module):
         for s, stage in enumerate(self._stages):
             if self.sp is not None and s == self.gather_from:
                 x = sp_lib.gather(x, self.sp)
-            if s >= self.swin_from:
-                x = stage(x, generator)
-            elif self.remat and torch.is_grad_enabled():
-                x = checkpoint(stage, x, use_reentrant=False)
-            else:
-                x = stage(x)
+            # outside the checkpoint: the recompute never re-enters the span
+            with span(self._spans[s]):
+                if s >= self.swin_from:
+                    x = stage(x, generator)
+                elif self.remat and torch.is_grad_enabled():
+                    x = checkpoint(stage, x, use_reentrant=False)
+                else:
+                    x = stage(x)
             if s >= self.first_out:
                 outputs[f"C{s}"] = x
         return outputs
@@ -192,10 +197,11 @@ class Decoder(nn.Module):
         outputs = {f"P{s}": out(top_down[s])
                    for s, out in zip(self.stages_needed, self._out)}
         if self.refine_levels:
-            refined = self._refine(
-                [sp_lib.gather(outputs[lv], self.sp)
-                 if int(lv[1:]) in self.sharded else outputs[lv]
-                 for lv in self.refine_levels], generator)
+            with span("model.fpn.refine"):
+                refined = self._refine(
+                    [sp_lib.gather(outputs[lv], self.sp)
+                     if int(lv[1:]) in self.sharded else outputs[lv]
+                     for lv in self.refine_levels], generator)
             outputs.update(zip(self.refine_levels, refined))
         return outputs
 
@@ -218,7 +224,9 @@ class AttnFPN(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None
                 ) -> Dict[str, torch.Tensor]:
-        return self._decoder(self._encoder(x, generator), generator)
+        feats = self._encoder(x, generator)
+        with span("model.fpn"):
+            return self._decoder(feats, generator)
 
     def whole(self, x: torch.Tensor, level: str) -> torch.Tensor:
         """``x``, the decoder's output ``level`` or a tensor computed from it

@@ -49,6 +49,7 @@ from transoar_tpu_torch.ops.nms import nms_3d
 from transoar_tpu_torch.utils.boxes import (box_cxcyczwhd_to_xyzxyz,
                                             box_iou_pairwise,
                                             generalized_box_iou_elementwise)
+from transoar_tpu_torch.utils.spans import span
 
 # focal-loss prior: P(fg) ~ 0.01 at init
 PRIOR_BIAS = float(-np.log((1 - 0.01) / 0.01))
@@ -173,14 +174,17 @@ class RetinaNet(nn.Module):
         feats = self._backbone(x, generator)
         B = x.shape[0]
         levels = [self._backbone.whole(feats[lv], lv) for lv in self.levels]
-        logits = [self._cls_tower(f).reshape(B, -1, self.num_classes)
-                  for f in levels]
-        deltas = [self._reg_tower(f).reshape(B, -1, 6) for f in levels]
+        with span("model.cls_tower"):
+            logits = [self._cls_tower(f).reshape(B, -1, self.num_classes)
+                      for f in levels]
+        with span("model.reg_tower"):
+            deltas = [self._reg_tower(f).reshape(B, -1, 6) for f in levels]
         out = {"anchor_logits": torch.cat(logits, 1).float(),
                "anchor_deltas": torch.cat(deltas, 1).float()}
         if hasattr(self, "_seg_head"):
-            out["pred_seg"] = self._backbone.whole(
-                self._seg_head(feats["P0"]).float(), "P0")
+            with span("model.seg_head"):
+                out["pred_seg"] = self._backbone.whole(
+                    self._seg_head(feats["P0"]).float(), "P0")
         return out
 
 

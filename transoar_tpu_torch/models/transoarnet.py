@@ -42,6 +42,7 @@ from transoar_tpu_torch.models.focused_decoder import (FocusedDecoder,
 from transoar_tpu_torch.models.layers import MLP, Linear
 from transoar_tpu_torch.models.position_encoding import build_pos_enc
 from transoar_tpu_torch.ops.conv3d import Conv3d
+from transoar_tpu_torch.utils.spans import span
 
 
 class TransoarNet(nn.Module):
@@ -128,26 +129,29 @@ class TransoarNet(nn.Module):
         feats = self._backbone(x, generator)
         query_embed = self._query_embed.weight
         weights, ref = None, None
-        if self.neck_name == "def_detr":
-            hs, ref = self._neck([self._backbone.whole(feats[lv], lv)
-                                  for lv in self.levels],
-                                 query_embed, generator)
-        else:
-            src = self._backbone.whole(feats[self.input_level],
-                                       self.input_level)
-            hs = self._neck(src, query_embed, self._pos_enc(src), generator,
-                            return_weights)  # [L, B, Q, C]
-            if return_weights:
-                hs, weights = hs
-        logits = self._cls_head(hs).float()
-        boxes = self._decode(self._reg_head(hs).float(), ref)
+        with span("model.neck"):
+            if self.neck_name == "def_detr":
+                hs, ref = self._neck([self._backbone.whole(feats[lv], lv)
+                                      for lv in self.levels],
+                                     query_embed, generator)
+            else:
+                src = self._backbone.whole(feats[self.input_level],
+                                           self.input_level)
+                hs = self._neck(src, query_embed, self._pos_enc(src),
+                                generator, return_weights)  # [L, B, Q, C]
+                if return_weights:
+                    hs, weights = hs
+        with span("model.heads"):
+            logits = self._cls_head(hs).float()
+            boxes = self._decode(self._reg_head(hs).float(), ref)
         out = {"pred_logits": logits[-1], "pred_boxes": boxes[-1]}
         if self.aux_loss:
             out["aux_logits"] = logits[:-1]
             out["aux_boxes"] = boxes[:-1]
         if hasattr(self, "_seg_head"):
-            out["pred_seg"] = self._backbone.whole(
-                self._seg_head(feats["P0"]).float(), "P0")
+            with span("model.seg_head"):
+                out["pred_seg"] = self._backbone.whole(
+                    self._seg_head(feats["P0"]).float(), "P0")
         if return_weights and self.neck_name != "def_detr":
             if isinstance(weights, dict):
                 out["attn_weights"] = weights["cross"]

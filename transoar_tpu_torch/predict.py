@@ -16,6 +16,13 @@ volume on the RAS grid. The run directory ``runs/<experiment>`` holds
 ``config.json`` and a port checkpoint (``training/checkpoints.py``). A
 RetinaNet run is refused, as the JAX CLI has no decode for it; ``test``
 serves that family.
+
+Under a torch profiler ``predict_case`` marks its phases as spans
+(``utils/spans.py``): ``predict.read`` (NIfTI open, inflate, header),
+``predict.reorient`` (RAS transpose and flips, the f32 cast),
+``predict.resize`` (the zoom to the model's grid), ``predict.forward`` (the
+region ``forward_seconds`` times: copy, window, model, copy back) and
+``predict.decode`` (the per-organ decode and the detection records).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from transoar_tpu_torch.models.transoarnet import build_model
 from transoar_tpu_torch.training import checkpoints as ckpt_lib
 from transoar_tpu_torch.training.inference import inference
 from transoar_tpu_torch.utils.io import set_root_logger, write_json
+from transoar_tpu_torch.utils.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -71,12 +79,15 @@ def load_predictor(path_to_run, prefer_best=True, device="cuda"):
 
 def prepare_volume(path, target_shape):
     """NIfTI file -> (model input [1, S0, S1, S2, 1], ras_volume, affine)."""
-    img = load_nifti(path)
-    ras, affine = reorient_ras(img["data"], img["affine"])
-    ras = ras.astype(np.float32)
-    if ras.ndim == 4:  # drop a trailing singleton time axis
-        ras = ras[..., 0]
-    resized = resize_volume(ras, tuple(target_shape), order=1)
+    with span("predict.read"):
+        img = load_nifti(path)
+    with span("predict.reorient"):
+        ras, affine = reorient_ras(img["data"], img["affine"])
+        ras = ras.astype(np.float32)
+        if ras.ndim == 4:  # drop a trailing singleton time axis
+            ras = ras[..., 0]
+    with span("predict.resize"):
+        resized = resize_volume(ras, tuple(target_shape), order=1)
     return resized[None, ..., None], ras, affine
 
 
@@ -110,27 +121,29 @@ def predict_case(input_path, config, forward, score_threshold=0.0):
         "resize_shape") or config["augmentation"]["patch_size"]
     image, ras, affine = prepare_volume(input_path, target)
 
-    t0 = time.perf_counter()
-    out = forward(image)  # ends with the copy to the host
-    forward_s = time.perf_counter() - t0
-    boxes, classes, scores = inference(out, config["neck"]["num_organs"])
-    boxes, classes, scores = boxes[0], classes[0], scores[0]
-    keep = scores >= score_threshold
-    boxes, classes, scores = boxes[keep], classes[keep], scores[keep]
+    with span("predict.forward"):
+        t0 = time.perf_counter()
+        out = forward(image)  # ends with the copy to the host
+        forward_s = time.perf_counter() - t0
+    with span("predict.decode"):
+        boxes, classes, scores = inference(out, config["neck"]["num_organs"])
+        boxes, classes, scores = boxes[0], classes[0], scores[0]
+        keep = scores >= score_threshold
+        boxes, classes, scores = boxes[keep], classes[keep], scores[keep]
 
-    lo_v, hi_v, lo_w, hi_w = boxes_to_frames(boxes, ras.shape, affine)
-    labels = config.get("labels", {})
-    detections = [{
-        "class": int(cls),
-        "name": labels.get(str(int(cls)), f"class{int(cls)}"),
-        "score": float(s),
-        "box_cxcyczwhd_norm": [float(v) for v in box],
-        "voxel_lo": [float(v) for v in lo],
-        "voxel_hi": [float(v) for v in hi],
-        "world_mm_lo": [float(v) for v in wl],
-        "world_mm_hi": [float(v) for v in wh],
-    } for cls, s, box, lo, hi, wl, wh in zip(
-        classes, scores, boxes, lo_v, hi_v, lo_w, hi_w)]
+        lo_v, hi_v, lo_w, hi_w = boxes_to_frames(boxes, ras.shape, affine)
+        labels = config.get("labels", {})
+        detections = [{
+            "class": int(cls),
+            "name": labels.get(str(int(cls)), f"class{int(cls)}"),
+            "score": float(s),
+            "box_cxcyczwhd_norm": [float(v) for v in box],
+            "voxel_lo": [float(v) for v in lo],
+            "voxel_hi": [float(v) for v in hi],
+            "world_mm_lo": [float(v) for v in wl],
+            "world_mm_hi": [float(v) for v in wh],
+        } for cls, s, box, lo, hi, wl, wh in zip(
+            classes, scores, boxes, lo_v, hi_v, lo_w, hi_w)]
     return detections, (lo_v, hi_v, classes), ras.shape, affine, forward_s
 
 

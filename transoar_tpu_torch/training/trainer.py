@@ -17,7 +17,13 @@
   the end of the epoch. Plain batching: ``trainer.microbatch``,
   ``steps_per_dispatch`` and ``xla_options`` are accepted and change
   nothing (on the JAX side they are TPU dispatch and layout choices whose
-  equality with plain batching its tests pin).
+  equality with plain batching its tests pin). Under a torch profiler the
+  step's phases are spans (``utils/spans.py``): ``step.inputs``
+  (augmentation or window, targets, the sp scatter), ``step.forward``,
+  ``step.criterion`` (with the normaliser's all-reduce, ``total_loss``),
+  ``step.backward`` (``zero_grad``, the backward with the remat
+  recompute) and ``step.update`` (the reported losses, the nan guard,
+  clipping, AdamW, the schedule).
 - ``make_eval_step``: the same up to the losses, without gradients; returns
   losses, predictions and targets. Validation decodes RetinaNet's
   predictions on the card (``models/retina.retina_inference`` with its
@@ -87,6 +93,7 @@ from transoar_tpu_torch.training.train_state import (UpdateRule,
                                                      current_lrs,
                                                      make_optimizer)
 from transoar_tpu_torch.utils.boxes import segmentation2bbox
+from transoar_tpu_torch.utils.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -160,32 +167,38 @@ def make_train_step(model, criterion, optimizer, scheduler, config,
     sp = None if layout is None else layout.sp_shard
 
     def train_step(batch):
-        if mode == "device":
-            image, seg = augment_batch(batch["image"].float(),
-                                       batch["seg"].long(), generator,
-                                       aug_cfg, intensity_stats=stats)
-        else:  # the host augmenter already windowed its batches
-            image, seg = _prepare(batch, None if mode == "host" else stats)
-        targets = derive_targets(seg, num_classes, padding)
-        if sp is not None:
-            image = sp_lib.scatter(image, sp)
-        out = model(image, generator=generator)
-        if layout is None:
-            losses = criterion(out, targets, net.anchors)
-        else:
-            norm = criterion.batch_normalizer(targets, net.anchors)
-            dist.all_reduce(norm, group=group)
-            losses = criterion(out, targets, net.anchors, present_total=norm,
-                               group=group)
-        loss = total_loss(losses, coefs)
-        optimizer.zero_grad(set_to_none=True)
-        (loss if layout is None else loss * layout.dp).backward()
-        losses["total"] = loss
-        losses = {k: v.detach() for k, v in losses.items()}
-        if layout is not None:
-            losses = _global_losses(losses, group)
-        if nan_guard != "skip" or _all_finite(losses["total"], layout):
-            update()
+        with span("step.inputs"):
+            if mode == "device":
+                image, seg = augment_batch(batch["image"].float(),
+                                           batch["seg"].long(), generator,
+                                           aug_cfg, intensity_stats=stats)
+            else:  # the host augmenter already windowed its batches
+                image, seg = _prepare(batch,
+                                      None if mode == "host" else stats)
+            targets = derive_targets(seg, num_classes, padding)
+            if sp is not None:
+                image = sp_lib.scatter(image, sp)
+        with span("step.forward"):
+            out = model(image, generator=generator)
+        with span("step.criterion"):
+            if layout is None:
+                losses = criterion(out, targets, net.anchors)
+            else:
+                norm = criterion.batch_normalizer(targets, net.anchors)
+                dist.all_reduce(norm, group=group)
+                losses = criterion(out, targets, net.anchors,
+                                   present_total=norm, group=group)
+            loss = total_loss(losses, coefs)
+        with span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            (loss if layout is None else loss * layout.dp).backward()
+        with span("step.update"):
+            losses["total"] = loss
+            losses = {k: v.detach() for k, v in losses.items()}
+            if layout is not None:
+                losses = _global_losses(losses, group)
+            if nan_guard != "skip" or _all_finite(losses["total"], layout):
+                update()
         return losses
 
     train_step.update = update
