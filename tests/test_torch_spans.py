@@ -1,7 +1,8 @@
 """The port's spans (``transoar_tpu_torch.utils.spans``) on the CPU: off
 without a profiler, the train step's and the served request's phases
 under ``torch.profiler``, which spans take CUDA timing events (the
-step's phases alone), and the benchmark's nine readers of them.
+step's phases and the deformable refine), and the benchmark's ten readers
+of them.
 
 Tiny flagship (4 CNN stages, remat on), batch 2; a 48x40x20 int16
 ``.nii.gz`` served to its 32x32x16 grid.
@@ -33,7 +34,8 @@ PREDICT = ("predict.read", "predict.reorient", "predict.resize",
 METRICS = {f"predict.{k}_ms.serve": f"predict.{k}"
            for k in ("read", "reorient", "resize", "decode")} | \
           {f"step.{k}_ms.train": f"step.{k}"
-           for k in ("inputs", "forward", "criterion", "backward", "update")}
+           for k in ("inputs", "forward", "criterion", "backward", "update")} | \
+          {"refine.forward_ms.train": "model.fpn.refine"}
 
 
 @pytest.fixture(autouse=True)
@@ -183,13 +185,13 @@ def test_only_step_phases_take_events(monkeypatch):
             m.setattr(torch.cuda, "is_initialized", lambda: True)
             m.setattr(torch.cuda, "Event", Event)
             m.setattr(torch.cuda, "synchronize", lambda: None)
-            for name in STEP + others:
+            for name in STEP + ("model.fpn.refine",) + others:
                 with spans.span(name):
                     pass
             got = spans.summary()
     assert spans.TIMED == {METRICS[k] for k in METRICS
-                           if k.startswith("step.")}
-    for name in STEP:
+                           if not k.startswith("predict.")}
+    for name in STEP + ("model.fpn.refine",):
         assert len(got[name]["device_ms"]) == 1, name
         assert got[name]["device_ms"][0] >= 0
     for name in others:

@@ -23,6 +23,14 @@ corner's gathered values.
 
 The JAX package left this op to XLA gathers (no Pallas kernel: its
 vector gathers do not lower), so it is stock PyTorch here.
+
+Tracing: each call is the span ``ops.ms_deform_attn`` (a host range while
+a profiler records) and counts itself in ``ms_deform_attn.calls`` and its
+sampled points, B * Q * M * L * P, in ``ms_deform_attn.samples``.
+``KERNELS`` names the device functions that do the op's work, forward and
+backward, as the profiler's trace names them: grid_sample's. The
+weighting's batched products run in cuBLAS functions that other products
+of a step share by name, so they are not named.
 """
 
 from __future__ import annotations
@@ -32,12 +40,28 @@ import math
 import torch
 import torch.nn.functional as F
 
+from transoar_tpu_torch.utils.spans import span
+
+KERNELS = ("grid_sampler_3d_kernel", "grid_sampler_3d_backward_kernel")
+
 
 def ms_deform_attn(value: torch.Tensor, spatial_shapes,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
     """[B, S, M, D], static [(s0, s1, s2)] * L, [B, Q, M, L, P, 3],
     [B, Q, M, L, P] -> [B, Q, M * D] f32."""
+    ms_deform_attn.calls += 1
+    ms_deform_attn.samples += attention_weights.numel()
+    with span("ops.ms_deform_attn"):
+        return _sample(value, spatial_shapes, sampling_locations,
+                       attention_weights)
+
+
+ms_deform_attn.calls = 0
+ms_deform_attn.samples = 0
+
+
+def _sample(value, spatial_shapes, sampling_locations, attention_weights):
     B, S, M, D = value.shape
     Q, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]

@@ -15,7 +15,10 @@
   events on the current stream, whose device ms the benchmark reads: the
   stream-order interval from the work queued before the span to the
   span's last work, its kernels plus any idle the card spent waiting for
-  the host inside it, so the phases add up to the step.
+  the host inside it, so the phases add up to the step. The deformable
+  refine of the FPN levels, ``model.fpn.refine``, takes a pair too: it
+  nests inside ``step.forward`` and is not one of the five phases that add
+  up to the step.
 
 Spans may nest; an exception still closes the span. ``summary()`` gives
 ``{name: {"calls", "host_ms", "device_ms"}}`` (one synchronize resolves
@@ -30,7 +33,7 @@ The spans: ``predict.read`` / ``.reorient`` / ``.resize`` / ``.forward`` /
 ``.criterion`` / ``.backward`` / ``.update`` (``training/trainer.py``),
 ``model.encoder.stage<i>``, ``model.fpn``, ``model.fpn.refine``,
 ``model.neck``, ``model.heads``, ``model.seg_head``, ``model.cls_tower``,
-``model.reg_tower`` (``models/``).
+``model.reg_tower`` (``models/``), ``ops.ms_deform_attn`` (``ops/``).
 """
 
 from __future__ import annotations
@@ -41,9 +44,10 @@ import time
 import torch
 
 _OFF = contextlib.nullcontext()
-# the spans whose device ms a reader uses (the benchmark's step.* metrics)
+# the spans whose device ms a reader uses (the benchmark's step.* metrics
+# and refine.forward_ms.train)
 TIMED = frozenset(("step.inputs", "step.forward", "step.criterion",
-                   "step.backward", "step.update"))
+                   "step.backward", "step.update", "model.fpn.refine"))
 # name -> [[host ms, device ms | (start event, end event) | None], ...]
 _registry: dict[str, list] = {}
 
