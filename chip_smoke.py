@@ -50,6 +50,17 @@ each printing a line; any failure exits non-zero before the result lines:
    over the FP32 rate, the larger; printed only, not in the result line);
 6. conv2d_3x3 (the NHWC conv on packed_conv's forward kernel) vs plain,
    the generic kernel and cuDNN on one shape;
+6b. the RoI gather's backward (``ops/kernels/roi_gather.py``) at the
+   flagship's and the SwinFPN's shapes (their configs' RoIs, batch 2, bf16
+   rows of 384): the kernel on a contiguous gradient, as the attention's
+   einsum hands it over, and on one with the heads apart (which the
+   wrapper copies first), against its plain version on the CPU (the same
+   bits), the same bits when run twice, one launch a call; the median
+   device ms of each beside the bytes bound, the plain version's on the
+   card and autograd's ``k[:, flat]`` backward (PyTorch's sorted
+   ``index_put_``, with its zeros) for K and V, for scale; then one
+   full-width ``FocusedAttn`` forward and backward at each shape, with the
+   strides of the gradient the kernel got and whether it was copied;
 7. small models, CPU vs card: tiny f32 flagship-, Swin-, seg-proxy-,
    refine-, DETR- and Deformable-DETR-shaped models (``presets``) with the
    same seeded weights on the CPU (plain versions) and on the card
@@ -189,7 +200,10 @@ every launch of the band conv's forward kernel (forward and dx), and every
 training path every launch of its dw kernel, to have taken the wide or the
 fold variant, never the generic one, and every launch of the window
 kernels to have taken fwd_wg / bwd_wg (none on the flagship's paths).
-Phase 19's and 20's paths run in their ranks' processes, which set their
+Every train step of a model whose decoder takes the RoI path launches the
+RoI gather's backward once a decoder layer (``_roi_layers``: 3 on the
+focused-decoder configs, small and full width); no serving, test, eval or
+dense path launches it. Phase 19's and 20's paths run in their ranks' processes, which set their
 counts to 0 and report them (phase 19's f32 steps take the band conv's f32
 kernels, and its ranks' variants are not read; phase 20 checks its ranks'
 variants itself); ``parallel_fsdp_test`` runs here and is checked as the
@@ -300,7 +314,8 @@ def _kernels():
 
 
 def _wrappers():
-    from transoar_tpu_torch.ops.kernels import conv2d, window_attention
+    from transoar_tpu_torch.ops.kernels import (conv2d, roi_gather,
+                                                window_attention)
 
     pc = _kernels()
     return {"packed_conv": pc.packed_conv,
@@ -309,7 +324,8 @@ def _wrappers():
             "fused_window_attention": window_attention.fused_window_attention,
             "fused_window_attention_bwd":
                 window_attention.fused_window_attention_bwd,
-            "conv2d_3x3": conv2d.conv2d_3x3}
+            "conv2d_3x3": conv2d.conv2d_3x3,
+            "roi_gather_bwd": roi_gather.roi_gather_bwd}
 
 
 def _counts():
@@ -391,7 +407,7 @@ def phase_build():
     from transoar_tpu_torch.ops.kernels import window_attention as wa
     from transoar_tpu_torch.ops.kernels._build import build_log, load_library
 
-    names = ("packed_conv", "window_attention")
+    names = ("packed_conv", "window_attention", "roi_gather")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # nvcc runs in parallel
         list(pool.map(load_library, names))
@@ -843,6 +859,121 @@ def phase_conv2d():
     return [row]
 
 
+def _roi_inputs(name):
+    """(idx, valid, S) of the config's RoI at its input level."""
+    from transoar_tpu_torch.models import focused_decoder as fd
+    from transoar_tpu_torch.presets import model_config
+
+    cfg = model_config(name)
+    shape = fd.level_spatial_shape(cfg["augmentation"]["patch_size"],
+                                   int(cfg["neck"]["input_levels"][-1]))
+    bias = fd.generate_attn_bias(cfg["bbox_properties"], shape)
+    idx, valid = fd.roi_token_indices(bias)
+    return idx, valid, bias.shape[1]
+
+
+def phase_roi_gather():
+    from transoar_tpu_torch.models import focused_decoder as fd
+    from transoar_tpu_torch.ops.kernels import roi_gather as rg
+
+    rows = []
+    B, H, hd = BATCH, 8, 48
+    for name in ("foc_dec_amos", "swin_fpn_visceral"):
+        idx, valid, S = _roi_inputs(name)
+        offsets, slots = fd.roi_inverse_index(
+            torch.as_tensor(idx).long(), torch.as_tensor(valid), S)
+        offsets, slots = offsets.cuda(), slots[:int(offsets[-1])].cuda()
+        nnz, N = slots.numel(), idx.size
+        flat = torch.as_tensor(idx).reshape(-1).cuda()
+        live = torch.as_tensor(valid).reshape(-1).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        # [B, N, H, hd] with the heads apart, as the einsum's backward
+        # gives it, zero on the pads, as the softmax does
+        grads = [(torch.randn((B, H, N, hd), generator=gen, device="cuda")
+                  * live[None, None, :, None]).bfloat16().transpose(1, 2)
+                 for _ in range(2)]
+        dense = [g.contiguous() for g in grads]
+        ref = rg.roi_gather_bwd_reference(*(g.cpu() for g in grads),
+                                          offsets.cpu(), slots.cpu(), S)
+        row = {"config": name, "B": B, "S": S, "slots": N, "valid": nnz,
+               "width": H * hd}
+        for layout, g in (("contiguous", dense), ("heads_apart", grads)):
+            before = rg.roi_gather_bwd.launches
+            ours = rg.roi_gather_bwd(*g, offsets, slots, S)
+            torch.cuda.synchronize()
+            if rg.roi_gather_bwd.launches != before + 1:
+                fail(f"roi_gather_bwd {name}: launches "
+                     f"{rg.roi_gather_bwd.launches - before}, want 1")
+            for got, want in zip(ours, ref):
+                if not torch.equal(got.cpu(), want):
+                    fail(f"roi_gather_bwd {name} ({layout}) differs from "
+                         f"its plain version")
+            again = rg.roi_gather_bwd(*g, offsets, slots, S)
+            if not all(torch.equal(a, b) for a, b in zip(again, ours)):
+                fail(f"roi_gather_bwd {name} ({layout}) differs from itself "
+                     f"on a rerun")
+            row["ms" if layout == "contiguous" else "copy_ms"] = \
+                _median_ms(lambda: rg.roi_gather_bwd(*g, offsets, slots, S),
+                           hold=True)
+        row["max_abs_err"] = 0.0
+        nbytes = 2 * 2 * B * (nnz + S) * H * hd + 4 * (S + 1 + nnz)
+        row["bound_ms"], row["bound_by"] = _bound(0, nbytes)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["plain_ms"] = _median_ms(lambda: rg.roi_gather_bwd_reference(
+            *grads, offsets, slots, S), hold=True)
+        kh = [torch.zeros((B, S, H, hd), dtype=torch.bfloat16,
+                          device="cuda", requires_grad=True)
+              for _ in range(2)]
+        gathered = [k[:, flat] for k in kh]
+        row["indexing_ms"] = _median_ms(lambda: torch.autograd.grad(
+            gathered, kh, grads, retain_graph=True), hold=True)
+        row["attn_layer"] = _roi_attention_layer(name, idx, valid, S)
+        print(f"roi_gather_bwd: {json.dumps(row)}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def _roi_attention_layer(name, idx, valid, S):
+    """One full-width bf16 FocusedAttn forward and backward on the RoI
+    path: its launches and the gradient's layout as the kernel got it."""
+    from transoar_tpu_torch.models import focused_decoder as fd
+    from transoar_tpu_torch.ops.kernels import roi_gather as rg
+
+    organs, C, qpo = idx.shape[0], 384, 27
+    attn = fd.FocusedAttn(C, 8, organs).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for layer in (attn.k_proj, attn.v_proj, attn.proj):
+        layer.reset_parameters(gen)
+    q = torch.randn((BATCH, organs * qpo, C), generator=gen, device="cuda")
+    k = torch.randn((BATCH, S, C), generator=gen, device="cuda")
+    q, k = q.bfloat16(), k.bfloat16().requires_grad_()
+    roi = [torch.as_tensor(a).cuda() for a in (idx, valid)]
+    roi[0] = roi[0].long()
+    roi += list(fd.roi_inverse_index(*roi, S))
+    seen, operand = [], rg._operand
+
+    def spy(g):
+        out = operand(g)
+        seen.append({"shape": list(g.shape), "strides": list(g.stride()),
+                     "copied": out.data_ptr() != g.data_ptr()})
+        return out
+
+    before = rg.roi_gather_bwd.launches
+    rg._operand = spy
+    try:
+        out = attn(q, k, k, torch.zeros(organs, S, device="cuda"),
+                   tuple(roi))
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        rg._operand = operand
+    launches = rg.roi_gather_bwd.launches - before
+    if launches != 1 or not torch.isfinite(k.grad).all():
+        fail(f"FocusedAttn {name}: {launches} roi_gather_bwd launches, "
+             f"finite gradient {bool(torch.isfinite(k.grad).all())}")
+    return {"launches": launches, "gradients": seen}
+
+
 def _tiny(kind):
     from transoar_tpu_torch.presets import (tiny_config,
                                             tiny_flagship_config,
@@ -935,6 +1066,8 @@ def phase_small_train(kind):
     if windows:
         want.update(fused_window_attention=windows,
                     fused_window_attention_bwd=windows)
+    if _roi_layers(cfg):
+        want["roi_gather_bwd"] = _roi_layers(cfg)
     if cpu[4] or card[4] != want:
         fail(f"small {kind} train step launches: CPU {cpu[4]}, card "
              f"{card[4]}, want none and {want}")
@@ -1210,12 +1343,26 @@ def _training_result(trainer, epochs, counts, peak, run_s, case_ms):
     return result
 
 
-def _want_training(steps, val_batches, windows):
+def _roi_layers(cfg):
+    """roi_gather_bwd launches a train step of ``cfg``'s model: one a
+    decoder layer where a foc_attn neck takes the RoI path (as
+    ``build_transoarnet`` decides), else none; a forward launches none."""
+    neck = cfg["neck"]
+    if "retina" in cfg or neck.get("name", "foc_attn") != "foc_attn" or \
+            not neck.get("restrict_attn", True) or \
+            not neck.get("roi_attention", True):
+        return 0
+    return int(neck["dec_layers"])
+
+
+def _want_training(cfg, steps, val_batches, windows):
     want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
     want["packed_conv"] += 2 * val_batches
     if windows:
         want.update(fused_window_attention=windows * (steps + val_batches),
                     fused_window_attention_bwd=windows * steps)
+    if _roi_layers(cfg):
+        want["roi_gather_bwd"] = _roi_layers(cfg) * steps
     return want
 
 
@@ -1340,7 +1487,7 @@ def phase_training(root, dataset):
     case_ms = _check_loop("training", trainer, EPOCHS, "host")
     steps = EPOCHS * (TRAIN_CASES // BATCH)
     _check_launches("training", counts, _want_training(
-        steps, (EPOCHS + 1) * (VAL_CASES // BATCH), 0))
+        cfg, steps, (EPOCHS + 1) * (VAL_CASES // BATCH), 0))
     result = _training_result(trainer, EPOCHS, counts, peak, run_s, case_ms)
     print(f"training: foc_dec_amos 256x256x128 batch {BATCH} bf16 on "
           f"{dataset}, as shipped: host augmentation, "
@@ -1363,7 +1510,7 @@ def phase_swin_training(root, dataset):
     case_ms = _check_loop("Swin training", trainer, SWIN_EPOCHS, "host")
     steps = SWIN_EPOCHS * (SWIN_TRAIN_CASES // BATCH)
     _check_launches("swin_training", counts, _want_training(
-        steps, (SWIN_EPOCHS + 1) * (SWIN_VAL_CASES // BATCH),
+        cfg, steps, (SWIN_EPOCHS + 1) * (SWIN_VAL_CASES // BATCH),
         SWIN_WINDOW_LAUNCHES))
     if peak >= 40 * 2 ** 30:
         fail(f"Swin training peak memory {peak / 2 ** 30:.2f} GiB >= 40")
@@ -1464,7 +1611,7 @@ def phase_loop_variants(root, datasets):
                          f"{trainer._train_loader._ahead} cases in flight, "
                          f"not {want}")
             _check_launches(path, counts, _want_training(
-                LOOP_EPOCHS * LOOP_STEPS, val // BATCH, windows))
+                cfg, LOOP_EPOCHS * LOOP_STEPS, val // BATCH, windows))
             result = _training_result(trainer, LOOP_EPOCHS, counts, peak,
                                       run_s, case_ms)
             if variant == "device":
@@ -1647,7 +1794,7 @@ def phase_families(root, dataset):
                                               split, FAMILY_EPOCHS)
         case_ms = _check_loop(path, trainer, FAMILY_EPOCHS, "host")
         _check_launches(path, counts, _want_training(
-            FAMILY_EPOCHS * FAMILY_STEPS,
+            cfg, FAMILY_EPOCHS * FAMILY_STEPS,
             (FAMILY_EPOCHS + 1) * (VAL_CASES // BATCH), 0))
         if peak >= 40 * 2 ** 30:
             fail(f"{path} peak memory {peak / 2 ** 30:.2f} GiB >= 40")
@@ -1841,7 +1988,8 @@ def phase_retina(root, dataset):
             RetinaCriterion.assign = staticmethod(assign)
         case_ms = _check_loop(path, trainer, epochs, "host")
         _check_launches(path, counts, _want_training(
-            epochs * FAMILY_STEPS, (epochs + 1) * (VAL_CASES // BATCH), 0))
+            cfg, epochs * FAMILY_STEPS, (epochs + 1) * (VAL_CASES // BATCH),
+            0))
         if peak >= 40 * 2 ** 30:
             fail(f"{path} peak memory {peak / 2 ** 30:.2f} GiB >= 40")
         result = _training_result(trainer, epochs, counts, peak, run_s,
@@ -2101,7 +2249,7 @@ def _parallel_run(root, name, cfg, world, device, backend, modes):
     ranks = [json.loads((out / f"rank{r}.json").read_text())
              for r in range(world)]
     plain = results["plain"]
-    want = _want_training(PARALLEL_STEPS, 0, 0)
+    want = _want_training(cfg, PARALLEL_STEPS, 0, 0)
     counts_by_path, failures = {}, []
     print(f"parallel {name}: plain step (one process, no wrapper) loss "
           f"{plain['loss']}, step event ms {plain['step_event_ms']}, peak "
@@ -2216,7 +2364,7 @@ def _parallel_train_cli(root, dataset):
     ranks = [json.loads((out / f"cli.rank{r}.json").read_text())
              for r in range(nproc)]
     steps = TRAIN_CASES // BATCH
-    want = _want_training(steps, 2 * (VAL_CASES // BATCH), 0)
+    want = _want_training(cfg, steps, 2 * (VAL_CASES // BATCH), 0)
     for r, record in enumerate(ranks):
         launched = {k: v for k, v in record["launches"].items() if v}
         if launched != want or not np.isfinite(record["train_total"]).all():
@@ -2287,7 +2435,7 @@ def _sp_run(root, name, cfg, windows, two_cards):
     results = json.loads((out / "results.json").read_text())
     ranks = [json.loads((out / f"rank{r}.json").read_text())
              for r in range(2)]
-    want = _want_training(SP_STEPS, 0, windows)
+    want = _want_training(cfg, SP_STEPS, 0, windows)
     counts, failures = {}, []
     for precision in SP_PRECISIONS:
         tag = f"_{precision}"
@@ -2373,7 +2521,7 @@ def _sp_train_cli(root, model, dataset, cases, windows, two_cards):
     ranks = [json.loads((out / f"cli.rank{r}.json").read_text())
              for r in range(2)]
     steps = cases[0] // BATCH
-    want = _want_training(steps, 2 * (cases[1] // BATCH), windows)
+    want = _want_training(cfg, steps, 2 * (cases[1] // BATCH), windows)
     for r, record in enumerate(ranks):
         launched = {k: v for k, v in record["launches"].items() if v}
         if launched != want or not np.isfinite(record["train_total"]).all():
@@ -2454,11 +2602,18 @@ def _bench_want(args, windows):
         if windows:
             want["fused_window_attention"] = windows * volumes
         return want
+    from transoar_tpu_torch.presets import model_config
+
     steps = BENCH_STEPS * len(sizes)
     want = {k: n * steps for k, n in BENCH_STEP_LAUNCHES.items()}
     if windows:
         want.update(fused_window_attention=windows * steps,
                     fused_window_attention_bwd=windows * steps)
+    name = args[args.index("--config") + 1] if "--config" in args \
+        else "foc_dec_amos"
+    roi = _roi_layers(model_config(name))
+    if roi:
+        want["roi_gather_bwd"] = roi * steps
     return want
 
 
@@ -2586,6 +2741,7 @@ def main():
     dx_rows, dw_rows = phase_backward()
     win_rows, win_bwd_rows = phase_window_kernels()
     conv2d_rows = phase_conv2d()
+    roi_rows = phase_roi_gather()
     for kind in SMALL_MODELS:
         phase_small_model(kind)
         if kind in SMALL_TRAIN:
@@ -2652,6 +2808,11 @@ def main():
         _entry("conv2d_3x3", "transoar_tpu/ops/pallas/conv2d.py:43",
                sum(p["conv2d_3x3"] for p in paths.values()), conv2d_rows,
                conv2d_rows),
+        # no TPU kernel: the JAX package leaves the gather's backward to XLA
+        _entry("roi_gather_bwd", None, paths["training"]["roi_gather_bwd"],
+               roi_rows, [r for r in roi_rows
+                          if r["config"] == "foc_dec_amos"],
+               "transoar_tpu_torch/csrc/roi_gather.cu"),
     ]
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]]

@@ -13,6 +13,9 @@ originals.
   tokens and runs dense attention over the crop, with f32 logits, the
   ``MASKED_BIAS`` on padded slots and an f32 softmax; the dense path adds the
   per-organ bias to full [B, H, Q, S] logits. Both give the same result.
+  The RoI gather's backward adds each token's gradient up over the
+  gather's inverse index (``roi_inverse_index``, built once with the model;
+  ``ops/kernels/roi_gather.py``, a CUDA kernel on the card).
 - ``FocusedDecoderLayer``: self-attention -> focused cross-attention -> FFN,
   each with a residual and post-LayerNorm; names follow the reference
   (``self_attn``, ``norm2``, ``cross_attn``, ``norm1``, ``linear1``,
@@ -42,6 +45,7 @@ from transoar_tpu_torch.models.layers import (LayerNorm, Linear,
                                               MultiHeadSelfAttention,
                                               checkpoint_layer, dropout,
                                               feed_forward)
+from transoar_tpu_torch.ops.kernels.roi_gather import roi_gather
 
 MASKED_BIAS = -1e9  # additive bias for voxels outside the organ's attn area
 
@@ -70,6 +74,28 @@ def roi_token_indices(attn_bias, pad_multiple=128):
         idx[o, :len(tokens)] = tokens
         valid[o, :len(tokens)] = True
     return idx, valid
+
+
+def roi_inverse_index(idx: torch.Tensor, valid: torch.Tensor,
+                      num_tokens: int):
+    """The inverse of the RoI gather index, in CSR form, with torch ops on
+    ``idx``'s device and no sync with the host.
+
+    idx [organs, T], valid [organs, T] -> (offsets [num_tokens + 1] int32,
+    slots [organs * T] int32): the flat slots ``o * T + t`` that read token
+    s are ``slots[offsets[s]:offsets[s + 1]]``, in ascending order. Only
+    live slots are listed, in the first ``offsets[-1]`` entries; the rest
+    are never read. A slot is live if it is valid: a pad slot's softmax
+    weight is exactly 0 in f32, and so is its gradient. Only an organ with
+    no valid slot at all has every slot live, since its softmax is then
+    spread over its pads.
+    """
+    live = valid | ~valid.any(1, keepdim=True)
+    key = torch.where(live.reshape(-1), idx.reshape(-1).long(), num_tokens)
+    ordered, slots = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        ordered, torch.arange(num_tokens + 1, device=key.device))
+    return offsets.int(), slots.int()
 
 
 def generate_attn_bias(bbox_props, input_shape, restrict=True):
@@ -127,7 +153,9 @@ class FocusedAttn(nn.Module):
                 generator: torch.Generator | None = None,
                 return_weights: bool = False):
         """q [B, Q, C]; k, v [B, S, C]; bias [organs, S] f32;
-        roi: optional (idx [organs, T] long, valid [organs, T] bool).
+        roi: optional (idx [organs, T] long, valid [organs, T] bool),
+        optionally followed by its inverse (``roi_inverse_index``), which is
+        otherwise built on the device from the pair.
         With ``return_weights`` also the attention weights over the full
         token axis [B, H, Q, S] (the RoI path scatters each organ's crop
         back onto it, f32)."""
@@ -144,12 +172,13 @@ class FocusedAttn(nn.Module):
         qh = q_proj(q).unflatten(-1, (H, hd)) * hd ** -0.5
 
         if roi is not None:
-            idx, valid = roi
+            idx, valid = roi[:2]
+            inverse = roi[2:] or roi_inverse_index(idx, valid, kh.shape[1])
             T = idx.shape[1]
             pad_bias = torch.where(valid, 0.0, MASKED_BIAS)
-            flat = idx.reshape(-1)
-            k_r = kh[:, flat].view(B, O, T, H, hd)
-            v_r = vh[:, flat].view(B, O, T, H, hd)
+            k_r, v_r = roi_gather(kh, vh, idx.reshape(-1), *inverse)
+            k_r = k_r.view(B, O, T, H, hd)
+            v_r = v_r.view(B, O, T, H, hd)
             q_r = qh.view(B, O, qpo, H, hd)
             logits = torch.einsum("boqhd,bothd->bhoqt", q_r, k_r)
             logits = logits.float() + pad_bias[None, None, :, None, :]
@@ -224,7 +253,9 @@ class FocusedDecoder(nn.Module):
 
     ``attn_bias`` [organs, S] and the optional ``roi`` (idx, valid) are
     numpy constants from ``build_transoarnet``; they become non-persistent
-    buffers, so they move with the module and stay out of the state_dict.
+    buffers, so they move with the module and stay out of the state_dict,
+    as does the gather's inverse index (``roi_inv_offsets``,
+    ``roi_inv_slots``: ``roi_inverse_index``, built here once).
     """
 
     def __init__(self, config: Dict[str, Any], attn_bias: np.ndarray,
@@ -247,6 +278,12 @@ class FocusedDecoder(nn.Module):
                 np.asarray(idx, np.int64)), persistent=False)
             self.register_buffer("roi_valid", torch.as_tensor(
                 np.asarray(valid, bool)), persistent=False)
+            offsets, slots = roi_inverse_index(
+                self.roi_idx, self.roi_valid, self.attn_bias.shape[1])
+            self.register_buffer("roi_inv_offsets", offsets,
+                                 persistent=False)
+            self.register_buffer("roi_inv_slots", slots[:int(offsets[-1])],
+                                 persistent=False)
         self.remat = bool(config.get("remat", not self.use_roi))
 
     def forward(self, src: torch.Tensor, query_embed: torch.Tensor,
@@ -264,7 +301,8 @@ class FocusedDecoder(nn.Module):
         query_pos, tgt = query_embed.chunk(2, dim=-1)
         query_pos = query_pos.to(self.dtype).expand(B, *query_pos.shape)
         tgt = tgt.to(self.dtype).expand(B, *tgt.shape)
-        roi = (self.roi_idx, self.roi_valid) if self.use_roi else None
+        roi = (self.roi_idx, self.roi_valid, self.roi_inv_offsets,
+               self.roi_inv_slots) if self.use_roi else None
 
         layers = self.decoder["layers"]
         remat = self.remat and torch.is_grad_enabled()
