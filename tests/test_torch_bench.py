@@ -19,6 +19,7 @@ import transoar_tpu.models.transoarnet as jax_transoarnet
 import transoar_tpu.training.train_state as jax_train_state
 import transoar_tpu.training.trainer as jax_trainer
 import transoar_tpu.utils.cache as jax_cache
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import bench, presets
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -95,16 +96,6 @@ def test_synthetic_batch_matches_jax(config_name, monkeypatch):
     assert len(np.unique(seg)) > 1
 
 
-@pytest.fixture
-def one_thread():
-    """The tiny runs on one CPU thread: the test workers share the cores,
-    and torch's default of one thread a core makes them contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _tiny_yaml(tmp_path, family):
     cfg = (presets.tiny_flagship_config() if family == "flagship"
            else presets.tiny_config(family))
@@ -113,8 +104,7 @@ def _tiny_yaml(tmp_path, family):
     return str(path)
 
 
-def test_tiny_train_run_moves_parameters(tmp_path, monkeypatch, capsys,
-                                         one_thread):
+def test_tiny_train_run_moves_parameters(tmp_path, monkeypatch, capsys):
     built = []
     real = bench.build_benchmark
 
@@ -143,7 +133,7 @@ def test_tiny_train_run_moves_parameters(tmp_path, monkeypatch, capsys,
     ("flagship", "inference", "retina_inference"),
     ("retina", "retina_inference", "inference")])
 def test_tiny_eval_run_honours_config(family, decode, other, tmp_path,
-                                      monkeypatch, capsys, one_thread):
+                                      monkeypatch, capsys):
     calls = {decode: 0, other: 0}
 
     def counted(name):

@@ -14,6 +14,7 @@ import torch
 
 from tests.helpers import tiny_config as jax_tiny_config
 from tests.torch_parity import forward_pair, init_params, load, model_pair
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import position_encoding as jpe
 from transoar_tpu_torch.models import position_encoding as pe
 from transoar_tpu_torch.models.transoarnet import build_model

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.ops.pallas.conv2d import conv2d_3x3_pallas
 from transoar_tpu_torch.ops.kernels.conv2d import (conv2d_3x3,
                                                    conv2d_3x3_reference)

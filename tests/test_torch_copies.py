@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests.helpers import tiny_config
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu import presets as jpresets
 from transoar_tpu.data import dataset as jdataset
 from transoar_tpu.data import nifti as jnifti

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tests.helpers import synthetic_batch, tiny_config
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import criterion as jcrit
 from transoar_tpu.models.anchors import generate_anchors
 from transoar_tpu.models.matcher import match as jmatch

@@ -14,6 +14,7 @@ import torch
 from tests.helpers import tiny_config
 from tests.torch_parity import (apply, forward_pair, init_params, load,
                                 model_pair, t)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import def_attn as jdef
 from transoar_tpu.ops.deformable_attention import ms_deform_attn as jms
 from transoar_tpu_torch.models import def_attn

@@ -27,6 +27,7 @@ from tests.helpers import synthetic_batch, tiny_config
 from tests.torch_parity import (apply, assert_grads_close, forward_pair,
                                 init_params, load, model_pair, t,
                                 train_step_pair)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import detr as jdetr
 from transoar_tpu.models.hungarian import auction_assignment
 from transoar_tpu.training.inference import inference as jax_inference

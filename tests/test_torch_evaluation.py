@@ -19,11 +19,12 @@ import torch
 import yaml
 
 from tests.helpers import tiny_config
-from tests.torch_parity import randomize
+from tests.torch_parity import init_params
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.eval import evaluator as jax_evaluator
 from transoar_tpu.models.transoarnet import build_transoarnet as build_jax
 from transoar_tpu.training import checkpoints as jckpt
-from transoar_tpu.training.train_state import create_train_state
+from transoar_tpu.training.train_state import TrainState, make_optimizer
 from transoar_tpu_torch import import_checkpoint, test as test_cli
 from transoar_tpu_torch.data.synthetic import generate_dataset
 from transoar_tpu_torch.eval import evaluator as port_evaluator
@@ -52,12 +53,28 @@ def tiny(tmp_path_factory):
     x = np.random.default_rng(1).normal(
         0.5, 0.5, size=(1, 32, 32, 16, 1)).astype(np.float32)
     jmodel = build_jax(cfg)
-    params = randomize(jax.tree.map(np.asarray, jax.jit(jmodel.init)(
-        jax.random.key(0), jnp.asarray(x))["params"]), 3)
+    params = init_params(jmodel, jnp.asarray(x), seed=3)
     port = build_model(cfg).eval()
     port.load_state_dict(state_dict_from_jax(params, cfg))
     return SimpleNamespace(root=root, cfg=cfg, x=x, jmodel=jmodel,
                            params=params, port=port)
+
+
+def _jax_state(jmodel, cfg, params):
+    """``create_train_state``'s state holding ``params``, without its
+    eager flax init (the params it draws would be replaced at once)."""
+    return TrainState.create(apply_fn=jmodel.apply,
+                             params=jax.tree.map(jnp.asarray, params),
+                             tx=make_optimizer(cfg, 1))
+
+
+def _template_train_state(model, config, example, rng):
+    """``create_train_state`` without its flax init: zeros of the init's
+    shapes and dtypes, traced, not run op by op. scripts/test.py takes only
+    these from the state, the template its checkpoint restores into."""
+    shapes = jax.eval_shape(model.init, rng, example)["params"]
+    return _jax_state(model, config, jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype), shapes))
 
 
 @pytest.mark.parametrize("roi", [True, False])
@@ -89,10 +106,9 @@ def test_test_cli_matches_scripts_test(tiny, monkeypatch):
     from scripts import test as jax_test_cli
 
     monkeypatch.chdir(tiny.root)
-    jmodel = tiny.jmodel
-    state = create_train_state(jmodel, tiny.cfg, jnp.asarray(tiny.x),
-                               jax.random.key(0), 1)
-    state = state.replace(params=jax.tree.map(jnp.asarray, tiny.params))
+    monkeypatch.setattr(jax_test_cli, "create_train_state",
+                        _template_train_state)
+    state = _jax_state(tiny.jmodel, tiny.cfg, tiny.params)
     jrun, run = tiny.root / "runs" / "jexp", tiny.root / "runs" / "texp"
     jckpt.freeze_run_config(tiny.cfg, jrun)
     jckpt.save_checkpoint(jrun, "model_last", state, 1, 0.0)
@@ -146,15 +162,15 @@ def test_test_cli_retina_matches_scripts_test(tiny, monkeypatch):
     from transoar_tpu_torch.presets import tiny_config as port_tiny
 
     monkeypatch.chdir(tiny.root)
+    monkeypatch.setattr(jax_test_cli, "create_train_state",
+                        _template_train_state)
     cfg = port_tiny("retina", num_organs=3)
     cfg["trainer"]["precision"] = "float32"
     cfg["retina"].update(nms_iou=0.3, score_threshold=0.2)
     cfg.update({k: tiny.cfg[k] for k in ("dataset", *INFO_KEYS)})
     jmodel = build_retinanet(cfg)
-    state = create_train_state(jmodel, cfg, jnp.asarray(tiny.x),
-                               jax.random.key(0), 1)
-    params = randomize(jax.tree.map(np.asarray, state.params), 6)
-    state = state.replace(params=jax.tree.map(jnp.asarray, params))
+    params = init_params(jmodel, jnp.asarray(tiny.x), seed=6)
+    state = _jax_state(jmodel, cfg, params)
     jrun, run = tiny.root / "runs" / "jret", tiny.root / "runs" / "tret"
     jckpt.freeze_run_config(cfg, jrun)
     jckpt.save_checkpoint(jrun, "model_last", state, 1, 0.0)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tests.torch_parity import init_params, load, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import focused_decoder as jfd
 from transoar_tpu.models.anchors import synthetic_bbox_props
 from transoar_tpu.models.position_encoding import (

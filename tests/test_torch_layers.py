@@ -12,6 +12,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.torch_parity import apply, init_params, load, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import layers as jl
 from transoar_tpu_torch.models import layers as tl
 from transoar_tpu_torch.utils import weights as bridge

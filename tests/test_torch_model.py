@@ -1,11 +1,12 @@
 """The port's serving slice as a whole against the JAX package.
 
-tiny_config at f32 with ``stage0_pack: 4``: the JAX side runs the packed
-stage-0 chain through its Pallas kernel (``TRANSOAR_PALLAS_CONV=1``,
-``stage0_pack_batch1``, interpret mode on the CPU), the port through its
-packed_conv wrapper (the plain version on the CPU). Both get the same
-parameters: the flax init with the zero-initialised heads overwritten by
-seeded values (else every query scores alike), bridged by
+tiny_config at f32 with ``stage0_pack: 4`` and ``stage0_pack_batch1``:
+both sides run the packed stage-0 chain, the JAX side on its default XLA
+path (the band conv its Pallas kernel computes, whose parity with the
+port's is pinned at kernel size in tests/test_torch_packed_conv.py), the
+port through its packed_conv wrapper (the plain version on the CPU). Both
+get the same parameters: the flax init with the zero-initialised heads
+overwritten by seeded values (else every query scores alike), bridged by
 ``state_dict_from_jax``. Tolerances are tests/test_model_parity.py's:
 logits 2e-4, boxes 2e-5.
 """
@@ -17,30 +18,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from tests.helpers import tiny_config
-from tests.torch_parity import init_params, randomize
+from tests.torch_parity import counting, init_params, randomize
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models.transoarnet import build_transoarnet as build_jax
-from transoar_tpu.ops.pallas import packed_conv as jpacked
+from transoar_tpu.ops import conv3d as jconv
 from transoar_tpu.training.inference import inference as jax_inference
 from transoar_tpu.utils.torch_import import map_reference_state_dict
 from transoar_tpu_torch.models.transoarnet import build_model
 from transoar_tpu_torch.ops import conv3d as tconv
 from transoar_tpu_torch.training.inference import inference
 from transoar_tpu_torch.utils.weights import state_dict_from_jax
-
-
-def _counting(monkeypatch, module, name):
-    calls = []
-    fn = getattr(module, name)
-
-    def wrapped(*args):
-        calls.append(1)
-        return fn(*args)
-
-    monkeypatch.setattr(module, name, wrapped)
-    return calls
 
 
 @pytest.fixture(scope="module")
@@ -61,12 +50,10 @@ def slice_run():
     port.load_state_dict(state_dict_from_jax(params, cfg))
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TRANSOAR_PALLAS_CONV", "1")
-        jcalls = _counting(mp, jpacked, "packed_conv")
-        tcalls = _counting(mp, tconv, "packed_conv")
-        with pltpu.force_tpu_interpret_mode():
-            ref = jax.jit(lambda p, x: jmodel.apply({"params": p}, x))(
-                params, jnp.asarray(x))
+        jcalls = counting(mp, jconv, "conv3d_packed_chain")
+        tcalls = counting(mp, tconv, "packed_conv")
+        ref = jax.jit(lambda p, x: jmodel.apply({"params": p}, x))(
+            params, jnp.asarray(x))
         with torch.inference_mode():
             ours = port(torch.from_numpy(x))
     return SimpleNamespace(
@@ -205,13 +192,11 @@ def test_serving_cli_matches_jax_predict(slice_run, tmp_path, monkeypatch):
                          jax_predict.prepare_volume(case, patch)):
         np.testing.assert_array_equal(ours, ref)
 
-    monkeypatch.setenv("TRANSOAR_PALLAS_CONV", "1")
     jmodel = slice_run.jmodel
     forward = jax.jit(lambda p, img: jmodel.apply(
         {"params": p}, eval_transform(img, stats)))
-    with pltpu.force_tpu_interpret_mode():
-        ref_dets = jax_predict.predict_case(case, cfg, slice_run.params,
-                                            forward)[0]
+    ref_dets = jax_predict.predict_case(case, cfg, slice_run.params,
+                                        forward)[0]
     assert len(ref_dets) == len(dets)
     for ours, ref in zip(dets, ref_dets):
         assert ours["class"] == ref["class"] and ours["name"] == ref["name"]

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from tests.helpers import tiny_config
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.data.dataset import TransoarDataset as JaxDataset
 from transoar_tpu.native.native_loader import NativeLoader as JaxNative
 from transoar_tpu_torch.data import dataset

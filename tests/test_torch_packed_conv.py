@@ -12,6 +12,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.ops import conv3d as jconv
 from transoar_tpu.ops.pallas import packed_conv as jpacked
 from transoar_tpu_torch.ops import conv3d as tconv

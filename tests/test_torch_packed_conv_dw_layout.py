@@ -24,6 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch.ops.kernels.packed_conv import (
     _dw_variant, packed_conv_dw_reference)
 

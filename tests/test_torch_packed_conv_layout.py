@@ -12,6 +12,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch.ops.kernels.packed_conv import (
     FOLD_K, _fold_weight, _variant, _wide_weight, packed_conv_reference)
 

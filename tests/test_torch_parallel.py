@@ -35,6 +35,7 @@ import yaml
 from tests.helpers import synthetic_batch, tiny_config
 from tests.torch_parallel_worker import free_ports, launch, results, wait
 from tests.torch_parity import init_params
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import presets
 from transoar_tpu_torch.models.criterion import build_criterion
 from transoar_tpu_torch.models.transoarnet import build_model

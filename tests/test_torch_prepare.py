@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import yaml
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import prepare_dataset_amos, prepare_dataset_visceral
 from transoar_tpu_torch.data.nifti import write_nifti
 from transoar_tpu_torch.utils.io import get_config, load_json

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.data.nifti import load_nifti
 from transoar_tpu_torch import predict
 from transoar_tpu_torch.ops.kernels.packed_conv import packed_conv

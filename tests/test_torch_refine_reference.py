@@ -18,6 +18,7 @@ import torch
 
 from benchmark.reference import refine as ref
 from benchmark.reference.weights import make_weights
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import presets
 from transoar_tpu_torch.models.transoarnet import build_model
 from transoar_tpu_torch.ops.deformable_attention import ms_deform_attn

@@ -24,6 +24,7 @@ import torch
 from tests.helpers import synthetic_batch
 from tests.torch_parity import (apply, assert_grads_close, init_params, load,
                                 t, train_step_pair)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import retina as jretina
 from transoar_tpu.ops import nms as jnms
 from transoar_tpu.training.trainer import derive_targets as jderive

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch.models import focused_decoder as tfd
 from transoar_tpu_torch.ops.kernels import roi_gather as rg
 

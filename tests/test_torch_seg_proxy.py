@@ -14,6 +14,7 @@ import torch
 from tests.helpers import synthetic_batch, tiny_config
 from tests.torch_parity import (assert_grads_close, forward_pair, model_pair,
                                 t, train_step_pair)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import criterion as jcrit
 from transoar_tpu_torch.models import criterion as tcrit
 

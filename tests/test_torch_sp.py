@@ -32,6 +32,7 @@ from tests.test_torch_parallel import (_assert_state_matches, _save_init,
                                        jax_mesh_step, one_process)
 from tests.torch_parallel_worker import free_ports, launch, results, wait
 from tests.torch_parity import init_params
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import presets
 from transoar_tpu_torch.parallel import sp as sp_lib
 from transoar_tpu_torch.utils.weights import state_dict_from_jax

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import predict, presets
 from transoar_tpu_torch.data.nifti import write_nifti
 from transoar_tpu_torch.models.criterion import build_criterion

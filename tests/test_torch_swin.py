@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests.torch_parity import init_params, load
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models import swin as jswin
 from transoar_tpu_torch.models import swin
 from transoar_tpu_torch.models.layers import drop_path

@@ -28,6 +28,7 @@ import yaml
 
 from tests.helpers import synthetic_batch, tiny_config
 from tests.torch_parity import randomize
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models.criterion import Criterion as JCriterion
 from transoar_tpu.models.criterion import total_loss as jtotal_loss
 from transoar_tpu.models.transoarnet import build_transoarnet as build_jax

@@ -7,6 +7,7 @@ and Retina U-Net (gradient accumulation on the latter); one step with ``on_devic
 on-device phases, rehearsed at tiny size)."""
 
 import argparse
+import copy
 import logging
 
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 import torch
 import yaml
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch import predict, test, train
 from transoar_tpu_torch.data.synthetic import generate_dataset
 from transoar_tpu_torch.data.transforms import HostAugmentingLoader
@@ -42,16 +44,21 @@ def _setup(tmp_path, monkeypatch, cfg, name, num_train=4):
     return cfg, str(tmp_path / "dataset")
 
 
-@pytest.fixture
-def run_dir(tmp_path, monkeypatch):
-    """A tiny flagship config without augmentation; restores the root
-    logger the CLIs reconfigure."""
+@pytest.fixture(scope="module")
+def first_run(tmp_path_factory):
+    """One epoch of a tiny flagship config without augmentation, trained
+    once for the tests that start from it: (run root, config, trainer).
+    Restores the cwd and the root logger the CLIs reconfigure."""
+    root = tmp_path_factory.mktemp("first")
     cfg = tiny_flagship_config()
     cfg["augmentation"]["use_augmentation"] = False
-    cfg, _ = _setup(tmp_path, monkeypatch, cfg, "tiny")
     handlers = logging.root.handlers[:]
-    yield tmp_path, cfg
+    with pytest.MonkeyPatch.context() as mp:
+        cfg, _ = _setup(root, mp, cfg, "tiny")
+        trainer = train.main(["--config", _write(root / "tiny.yaml", cfg),
+                              "--device", "cpu"])
     logging.root.handlers[:] = handlers
+    return root, cfg, trainer
 
 
 @pytest.fixture
@@ -66,10 +73,9 @@ def _write(path, cfg):
     return str(path)
 
 
-def test_train_resume_then_predict(run_dir):
-    root, cfg = run_dir
-    args = ["--config", _write(root / "tiny.yaml", cfg), "--device", "cpu"]
-    first = train.main(args)
+def test_train_resume_then_predict(first_run, monkeypatch, restore_logging):
+    root, cfg, first = first_run
+    monkeypatch.chdir(root)
     run = root / "runs" / "tiny"
     assert (run / "model_last.pt").exists() and (run / "config.json").exists()
     assert len(list(run.glob("model_best_*.pt"))) == 1
@@ -82,6 +88,7 @@ def test_train_resume_then_predict(run_dir):
     assert last["epoch"] == 1 and set(last) >= {"optimizer", "scheduler"}
 
     # one more epoch: --auto_resume picks model_last up at epoch 1
+    cfg = copy.deepcopy(cfg)
     cfg["trainer"]["epochs"] = 2
     second = train.main(["--config", _write(root / "tiny.yaml", cfg),
                          "--device", "cpu", "--auto_resume"])
@@ -104,10 +111,10 @@ def test_train_resume_then_predict(run_dir):
         torch.testing.assert_close(model.state_dict()[name], value)
 
 
-def test_resume_refuses_weights_only_file(run_dir):
-    root, cfg = run_dir
-    first = train.main(["--config", _write(root / "tiny.yaml", cfg),
-                        "--device", "cpu"])
+def test_resume_refuses_weights_only_file(first_run, monkeypatch,
+                                          restore_logging):
+    root, cfg, first = first_run
+    monkeypatch.chdir(root)
     weights = ckpt_lib.save_checkpoint(root / "runs" / "w", "model_last",
                                        first._model)
     with pytest.raises(ValueError, match="weights only"):

@@ -1,18 +1,19 @@
 """One train step of the port against the JAX package, and the train
 step's ``nan_guard``.
 
-tiny_config at f32, batch 2, ``stage0_pack: 4``: at batch 2 the JAX side
-takes the packed stage-0 chain, and ``TRANSOAR_PALLAS_CONV=1`` with
-interpret mode puts it on the Pallas kernels 1-3 (forward, dx, dw). JAX
-side: ``jax.value_and_grad`` of ``model.apply(deterministic=True)`` +
+tiny_config at f32, batch 2, ``stage0_pack: 4``: at batch 2 both sides
+take the packed stage-0 chain. JAX side, on its default XLA path (the band
+conv as ``lax.conv_general_dilated``, the function its Pallas kernels 1-3
+compute; their parity with the port's band conv is pinned at kernel size in
+tests/test_torch_packed_conv.py and tests/test_torch_packed_conv_grad.py):
+``jax.value_and_grad`` of ``model.apply(deterministic=True)`` +
 ``Criterion`` + ``total_loss``, then ``make_optimizer``'s update with
 active clipping (max norm half the gradient norm). Port side: its train
 step with the model in ``eval()`` (no dropout), on the plain versions of
 the kernels. Both start from the same parameters (the flax init with the
 zero heads overwritten by seeded values), bridged by
 ``state_dict_from_jax``, and gradients are compared under the port's names.
-The port runs its encoder under remat (``torch.utils.checkpoint``); the JAX
-side without it, since interpret-mode Pallas cannot run under ``nn.remat``.
+Both run their encoder under remat, as the config has it.
 
 Tolerances, as tests/test_model_parity.py's gradient test: loss rtol 1e-4;
 per-tensor gradient rel-L2 < 1e-2 above a floor of 1e-5 of the global
@@ -21,7 +22,6 @@ whose gradient is above float noise (Adam's g / (|g| + eps) has no
 defined direction there).
 """
 
-import copy
 from types import SimpleNamespace
 
 import jax
@@ -29,18 +29,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from tests.helpers import synthetic_batch, tiny_config
-from tests.torch_parity import randomize
+from tests.torch_parity import counting, randomize
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models.criterion import Criterion as JCriterion
 from transoar_tpu.models.criterion import total_loss as jtotal_loss
 from transoar_tpu.models.transoarnet import build_transoarnet as build_jax
-from transoar_tpu.ops.pallas import packed_conv as jpacked
 from transoar_tpu.training.train_state import TrainState, make_optimizer
 from transoar_tpu.training.trainer import derive_targets as jderive
 from transoar_tpu_torch.models.criterion import build_criterion
 from transoar_tpu_torch.models.transoarnet import build_model
+from transoar_tpu_torch.ops.kernels import packed_conv as pc
 from transoar_tpu_torch.training import train_state as tstate
 from transoar_tpu_torch.training.trainer import Trainer, make_train_step
 from transoar_tpu_torch.utils.weights import state_dict_from_jax
@@ -58,11 +58,7 @@ def _config():
 def step_run():
     cfg = _config()
     image, seg = synthetic_batch(cfg, batch_size=2, seed=1)
-    # interpret-mode Pallas cannot run under nn.remat; remat changes memory,
-    # not numbers (the port keeps it on)
-    jcfg = copy.deepcopy(cfg)
-    jcfg["backbone"]["remat"] = False
-    jmodel = build_jax(jcfg)
+    jmodel = build_jax(cfg)
     params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
         jax.random.key(0), jnp.asarray(image))["params"])
     params["cls_head"] = randomize(params["cls_head"], 1)
@@ -79,27 +75,17 @@ def step_run():
         losses = crit(out, targets, anchors)
         return jtotal_loss(losses, cfg["loss_coefs"]), losses
 
-    calls = []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TRANSOAR_PALLAS_CONV", "1")
-        kernel_rows = jpacked._conv_rows
-
-        def counting(*args):
-            calls.append(1)
-            return kernel_rows(*args)
-
-        mp.setattr(jpacked, "_conv_rows", counting)
-        with pltpu.force_tpu_interpret_mode():
-            (loss, losses), grads = jax.jit(jax.value_and_grad(
-                loss_fn, has_aux=True))(params)
+    (loss, losses), grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
     grads = jax.tree.map(np.asarray, grads)
     norm = float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
                              for g in jax.tree.leaves(grads))))
     cfg["trainer"]["clip_max_norm"] = 0.5 * norm
     state = TrainState.create(apply_fn=jmodel.apply, params=params,
                               tx=make_optimizer(cfg, STEPS_PER_EPOCH))
-    new_params = jax.tree.map(np.asarray,
-                              state.apply_gradients(grads=grads).params)
+    # one compile for the update, not one an op
+    new_params = jax.tree.map(np.asarray, jax.jit(
+        lambda s, g: s.apply_gradients(grads=g))(state, grads).params)
 
     port = build_model(cfg).eval()  # no dropout, as deterministic apply
     port.load_state_dict(state_dict_from_jax(params, cfg))
@@ -107,21 +93,26 @@ def step_run():
     optimizer, scheduler = tstate.make_optimizer(port, cfg, STEPS_PER_EPOCH)
     step = make_train_step(port, build_criterion(cfg), optimizer, scheduler,
                            cfg)
-    ours = step({"image": torch.from_numpy(image),
-                 "seg": torch.from_numpy(seg)})
+    # the band conv's plain versions, which kernels 1-3 replace on a card
+    with pytest.MonkeyPatch.context() as mp:
+        calls = {name: counting(mp, pc, f"packed_conv{name}_reference")
+                 for name in ("", "_dx", "_dw")}
+        ours = step({"image": torch.from_numpy(image),
+                     "seg": torch.from_numpy(seg)})
     return SimpleNamespace(
         cfg=cfg, norm=norm, loss=float(loss),
         losses={k: float(v) for k, v in losses.items()}, ours=ours,
         ref_grads=state_dict_from_jax(grads, cfg),
         ref_old=state_dict_from_jax(params, cfg),
         ref_new=state_dict_from_jax(new_params, cfg),
-        before=before, port=port, jax_kernel_calls=len(calls))
+        before=before, port=port,
+        port_conv_calls={k: len(v) for k, v in calls.items()})
 
 
-def test_jax_side_ran_the_pallas_kernels(step_run):
-    # traced once: forward of both stage-0 convs, plus dx (second conv
-    # only) inside the custom VJP; dw is _dw_rows
-    assert step_run.jax_kernel_calls >= 3
+def test_port_ran_its_packed_chain(step_run):
+    # both stage-0 convs forward, again in the encoder's remat recompute;
+    # dx of the second conv only (the image needs none); dw of both
+    assert step_run.port_conv_calls == {"": 4, "_dx": 1, "_dw": 2}
 
 
 def test_loss_matches_jax(step_run):

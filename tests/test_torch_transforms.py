@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.data import transforms as jt
 from transoar_tpu_torch.data import transforms as pt
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu.models.swin import shifted_window_regions
 from transoar_tpu.ops.pallas.window_attention import \
     fused_window_attention as jfused

@@ -29,6 +29,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from transoar_tpu_torch.ops.kernels.window_attention import (
     _window_variant, _wg_split, window_attention_bwd_reference,
     window_attention_reference)

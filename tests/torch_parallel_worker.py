@@ -249,8 +249,8 @@ def run_sp_primitives(case, out, device):
                                                 1, device.type))
     shard = layout.sp_shard
     n = shard.size
-    L = 4
-    whole = torch.randn(2, n * L, 3, 2, dtype=torch.float64, device=device,
+    L = 4  # > 3: roll 3 crosses one rank boundary, wrapping at the ends
+    whole = torch.randn(2, n * L, 1, 2, dtype=torch.float64, device=device,
                         generator=torch.Generator(device).manual_seed(0))
 
     def around(fn):

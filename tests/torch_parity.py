@@ -2,7 +2,34 @@
 
 import jax
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one CPU thread for each module that imports this fixture:
+    the test workers share the cores, and torch's default of one thread a
+    core makes them contend (on an 8-core CPU a tiny flagship train step
+    takes 0.2 s alone and 6 s beside one other process doing the same)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def counting(monkeypatch, module, name):
+    """Patch ``module.name`` to count its calls; returns the list the calls
+    append to."""
+    calls = []
+    fn = getattr(module, name)
+
+    def wrapped(*args):
+        calls.append(1)
+        return fn(*args)
+
+    monkeypatch.setattr(module, name, wrapped)
+    return calls
 
 
 def randomize(tree, seed):
